@@ -8,16 +8,25 @@ use.
 Phases, each printing one JSON line:
 
 1. device: the card, its power limit, TF32 off;
-2. build: the nvcc build of both kernels and its seconds;
+2. build: the nvcc build of both kernels and its seconds, registers and
+   spills from ``ptxas -v``, and the tensor-core instructions (``HMMA`` /
+   ``HGMMA``) in each kernel's SASS (``cuobjdump -sass``): the fused MLP
+   must have some;
 3. fused_mlp: the kernel against its plain version (``mlp_reference``) on
    the card at the render's shapes: the VF net on 102,400 and 133,120
    points (39 -> 259, skip at layer 4, tanh) and the colour net on 133,120
-   x 289 -> 3 (sigmoid); kernel, plain and cuBLAS-chain times, FLOP bound;
+   x 289 -> 3 (sigmoid); kernel, plain and cuBLAS-chain times, the 3xTF32
+   tensor-core bound (``bound_ms``) and the f32-FMA one
+   (``bound_f32_fma_ms``); the kernel must beat the cuBLAS chain, and one
+   call must enqueue exactly one CUDA kernel (``torch.profiler``);
 4. fused_ray_march: the kernel against ``ray_march_reference`` at
-   (1024, 100) and (1024, 130), back-face threshold -0.2 and -2, plus
-   annealed taps on a white background; the kernel's time alone (``ms``),
-   the wrapper's with its on-device scalar preparation (``wrapper_ms``),
-   the plain version's, and the byte bound;
+   (1024, 100) and (1024, 130), back-face threshold -0.2 and -2, annealed
+   taps on a white background, raw density parameters beyond each clamp,
+   and the coarse pass's weights-only mode (against the plain version with
+   zero rgb); the kernel's device time per launch (``ms``, profiler), the
+   wrapper's by CUDA events over back-to-back calls (``wrapper_ms``), the
+   plain version's, and the byte bound; one call must enqueue exactly one
+   CUDA kernel;
 5. render: ``VectorFieldNerf.render`` of the shipped conf on the 1024 rays
    of ``__graft_entry__.entry`` (near 0, far 4): exactly 3 fused-MLP and 2
    ray-march launches, finite (1024, 3) / (1024, 1) outputs, agreement with
@@ -38,6 +47,9 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -53,17 +65,18 @@ from vf_nerf_torch.models.renderer import draw_uniforms, render_rays
 from vf_nerf_torch.ops.density import DensityParams
 from vf_nerf_torch.ops.embedding import positional_encoding
 from vf_nerf_torch.ops.fused_mlp import fused_mlp, mlp_reference
-from vf_nerf_torch.ops.ray_march import (fused_ray_march, launch_ray_march,
-                                         march_scalars, ray_march_reference,
-                                         tap_coefficients)
+from vf_nerf_torch.ops.ray_march import fused_ray_march, ray_march_reference
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 CONF = ROOT / "confs" / "vf_nerf.conf"
 VF_GAIN = 3.5
 N_RAYS = 1024
-# Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.
+# Published H100 SXM peaks (NVIDIA data sheet): dense TF32 on the tensor
+# cores, f32 outside them, and HBM3 bandwidth. The fused MLP's products are
+# 3xTF32 (three TF32 products per f32 product), so its bound is 3 x FLOP
+# over the TF32 peak.
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 MLP_TOL = 1e-3      # max |kernel - plain| on tanh / sigmoid outputs in [-1, 1]
@@ -110,6 +123,55 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+               "cuobjdump")
+
+
+def tensor_core_instructions(lib_path) -> dict:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each kernel's SASS."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[name][op] += 1
+                    break
+    return counts
+
+
+def kernels_per_call(fn, calls: int = 1):
+    """(CUDA kernels enqueued, device ms per call, kernel names) of
+    ``calls`` calls of ``fn``, by ``torch.profiler``, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    # The calls sit well inside the trace window: a kernel record at its very
+    # edge can be dropped.
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.01)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in events)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    return count, device_ms, sorted(e.key[:60] for e in events)
+
+
 def build_model(device) -> VectorFieldNerf:
     cfg = parse_config(scene="office0", config_path=str(CONF),
                        expname="graft").vf_nerf_config
@@ -138,8 +200,9 @@ def addmm_chain(weights, x, skip_at, final_act):
 def phase_mlp(model, dev):
     vf_w, rn_w = model.modules.folded_weights()
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows, totals = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                            bound_ms=0.0, max_abs_err=0.0)
+    rows = []
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  bound_f32_fma_ms=0.0, max_abs_err=0.0)
     statics = model.render_statics()
     n_coarse = N_RAYS * statics.n_coarse
     n_all = N_RAYS * (statics.n_coarse + statics.n_fine)
@@ -147,6 +210,7 @@ def phase_mlp(model, dev):
     cases = [("vf_coarse", vf_w, n_coarse, skip, "tanh"),
              ("vf_fine", vf_w, n_all, skip, "tanh"),
              ("colour", rn_w, n_all, None, "sigmoid")]
+    flop_total = 0.0
     for name, weights, n, skip, act in cases:
         if act == "tanh":
             pts = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
@@ -162,25 +226,42 @@ def phase_mlp(model, dev):
         finite = bool(torch.isfinite(out).all())
         check(finite and err <= MLP_TOL,
               f"fused_mlp {name}: max abs err {err} > {MLP_TOL}")
+        n_kernels, _, names = kernels_per_call(
+            lambda: fused_mlp(weights, x, skip, act))
+        check(n_kernels == 1,
+              f"fused_mlp {name}: one call enqueued {n_kernels} kernels "
+              f"{names}")
         macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
         flop = 2.0 * n * macs
         nbytes = 4.0 * (n * (x.shape[1] + weights[-1][0].shape[1]) +
                         sum(w.numel() + b.numel() for w, b in weights))
-        bound = max(flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        byte_ms = nbytes / PEAK_BYTES * 1e3
         row = dict(
             case=name, points=n, in_dim=x.shape[1],
             out_dim=weights[-1][0].shape[1], macs_per_point=macs,
-            max_abs_err=err, tol=MLP_TOL,
+            max_abs_err=err, tol=MLP_TOL, kernels_per_call=n_kernels,
             ms=cuda_ms(lambda: fused_mlp(weights, x, skip, act)),
             plain_ms=cuda_ms(lambda: mlp_reference(weights, x, skip, act)),
             library_ms=cuda_ms(lambda: addmm_chain(weights, x, skip, act)),
-            bound_ms=bound)
-        row["tflops"] = flop / row["ms"] / 1e9
+            bound_ms=max(3 * flop / PEAK_TF32_FLOPS * 1e3, byte_ms),
+            bound_f32_fma_ms=max(flop / PEAK_F32_FLOPS * 1e3, byte_ms))
+        row["tflops_f32_equivalent"] = flop / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        flop_total += flop
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_f32_fma_ms"):
             totals[k] += row[k]
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
-    emit({"phase": "fused_mlp", "cases": rows})
+    check(totals["ms"] < totals["library_ms"],
+          f"fused_mlp {totals['ms']} ms per render does not beat the cuBLAS "
+          f"chain's {totals['library_ms']} ms")
+    emit({"phase": "fused_mlp", "cases": rows,
+          "ms_per_render": totals["ms"],
+          "library_ms_per_render": totals["library_ms"],
+          "bound_ms_per_render": totals["bound_ms"],
+          "share_of_bound": totals["bound_ms"] / totals["ms"],
+          "tflops_f32_equivalent": flop_total / totals["ms"] / 1e9})
     return totals
 
 
@@ -198,51 +279,77 @@ def march_inputs(n_rays, n_samples, seed, dev):
 
 
 def phase_march(model, dev):
-    params = DensityParams(*(torch.tensor(v, device=dev)
-                             for v in (0.5, 100.0, 0.7)))
+    def params_of(*values):
+        return DensityParams(*(torch.tensor(v, device=dev) for v in values))
+
+    params = params_of(0.5, 100.0, 0.7)
+    # Raw values beyond each clamp: beta under its lower bound, a negative
+    # scale, the mean under its lower bound.
+    clamped = params_of(0.01, -80.0, 0.2)
     uniform = torch.full((11,), 1.0 / 11, device=dev)
     annealed = torch.tensor([0.01, -0.02, 0.05, 0.1, 0.15, 0.4, 0.12, 0.08,
                              0.04, 0.02, 0.01], device=dev)
     statics = model.render_statics()
     s_coarse, s_all = statics.n_coarse, statics.n_coarse + statics.n_fine
-    cases = [(s_coarse, -0.2, uniform, False),
-             (s_coarse, -2.0, uniform, False),
-             (s_all, -0.2, uniform, False), (s_all, -2.0, uniform, False),
-             (s_all, -0.2, annealed, True)]
+    # (samples, threshold, taps, white background, params, beta bounds,
+    #  weights only)
+    shipped = (1e-4, 1e9)
+    cases = [(s_coarse, -0.2, uniform, False, params, shipped, False),
+             (s_coarse, -2.0, uniform, False, params, shipped, True),
+             (s_all, -0.2, uniform, False, params, shipped, False),
+             (s_all, -2.0, uniform, False, params, shipped, False),
+             (s_all, -0.2, annealed, True, params, shipped, False),
+             (s_all, -0.2, uniform, False, clamped, (0.3, 1e9), False)]
     rows, timed, max_err = [], {}, 0.0
-    for s, th, taps, white in cases:
+    for s, th, taps, white, prm, beta_bounds, weights_only in cases:
         normals, dirs, z, rgb = march_inputs(N_RAYS, s, s, dev)
-        kw = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0,
+        kw = dict(beta_bounds=beta_bounds, scale_min=1.0,
                   mean_bounds=(0.6, 1.0), cutoff=-0.5, dir_to_normal_th=th,
                   normalize=True, white_background=white)
-        out = fused_ray_march(normals, dirs, z, rgb, params, taps, **kw)
-        ref = ray_march_reference(normals, dirs, z, rgb, params, taps, **kw)
+        rgb_in = None if weights_only else rgb
+        out = fused_ray_march(normals, dirs, z, rgb_in, prm, taps, **kw)
+        # The weights-only mode is held to the plain version with zero rgb.
+        ref = ray_march_reference(normals, dirs, z,
+                                  torch.zeros_like(rgb) if weights_only
+                                  else rgb, prm, taps, **kw)
         torch.cuda.synchronize()
+        check(not weights_only or (out[0] is None and out[1] is None),
+              "weights-only march returned rgb or depth")
         errs = {}
         for name, a, b in zip(("rgb", "depth", "weights"), out, ref):
+            if a is None:
+                continue
             errs[name] = float((a - b).abs().max())
             check(bool(torch.allclose(a, b, **MARCH_TOL)),
-                  f"fused_ray_march S={s} th={th} white={white} {name}: "
-                  f"max abs err {errs[name]}")
+                  f"fused_ray_march S={s} th={th} white={white} "
+                  f"weights_only={weights_only} {name}: max abs err "
+                  f"{errs[name]}")
         max_err = max(max_err, *errs.values())
-        row = dict(samples=s, th=th, white=white, max_abs_err=errs,
-                   tol=MARCH_TOL,
+        n_kernels, device_ms, names = kernels_per_call(
+            lambda: fused_ray_march(normals, dirs, z, rgb_in, prm, taps,
+                                    **kw))
+        check(n_kernels == 1,
+              f"fused_ray_march S={s}: one call enqueued {n_kernels} "
+              f"kernels {names}")
+        row = dict(samples=s, th=th, white=white, weights_only=weights_only,
+                   clamped=prm is clamped, max_abs_err=errs, tol=MARCH_TOL,
+                   kernels_per_call=n_kernels,
                    surface_rays=float((out[2].sum(1) > 0.5).float().mean()))
-        if th == -2.0:  # the shipped threshold: time the render's shapes
-            nbytes = 4.0 * (N_RAYS * s * 7 + N_RAYS * 3 + 11 + 5 +
-                            N_RAYS * (s + 4))
-            scalars = march_scalars(
-                params, device=dev, beta_bounds=(1e-4, 1e9), scale_min=1.0,
-                mean_bounds=(0.6, 1.0), cutoff=-0.5, dir_to_normal_th=th)
-            coefs = tap_coefficients(taps)
+        # The render's two launches: the coarse pass (weights only) and the
+        # fine composite, at the shipped threshold.
+        if th == -2.0:
+            rgb_bytes = 0 if weights_only else N_RAYS * s * 3 + N_RAYS * 4
+            nbytes = 4.0 * (N_RAYS * s * 4 + N_RAYS * 3 + 11 + 3 +
+                            N_RAYS * s + rgb_bytes)
+            _, device_ms, _ = kernels_per_call(
+                lambda: fused_ray_march(normals, dirs, z, rgb_in, prm, taps,
+                                        **kw), calls=20)
             row.update(
-                ms=cuda_ms(lambda: launch_ray_march(
-                    normals, dirs, z, rgb, coefs, scalars, True, white),
-                    iters=50),
+                ms=device_ms,
                 wrapper_ms=cuda_ms(lambda: fused_ray_march(
-                    normals, dirs, z, rgb, params, taps, **kw), iters=50),
+                    normals, dirs, z, rgb_in, prm, taps, **kw), iters=50),
                 plain_ms=cuda_ms(lambda: ray_march_reference(
-                    normals, dirs, z, rgb, params, taps, **kw), iters=20),
+                    normals, dirs, z, rgb_in, prm, taps, **kw), iters=20),
                 bound_ms=nbytes / PEAK_BYTES * 1e3, bytes=nbytes)
             timed[s] = row
         rows.append(row)
@@ -393,10 +500,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = load_library()
+    seconds = time.perf_counter() - t0
     regs = [line.strip() for line in lib.build_log.splitlines()
             if "registers" in line or "spill" in line]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.path.relative_to(ROOT)), "ptxas": regs})
+    tensor_core = tensor_core_instructions(lib.path)
+    mlp_tc = sum(c["HMMA"] + c["HGMMA"] for name, c in tensor_core.items()
+                 if "fused_mlp" in name)
+    check(mlp_tc > 0, "the fused MLP kernel's SASS has no HMMA / HGMMA")
+    emit({"phase": "build", "seconds": seconds,
+          "library": str(lib.path.relative_to(ROOT)), "ptxas": regs,
+          "tensor_core_sass": tensor_core})
 
     model = build_model(dev)
     mlp = phase_mlp(model, dev)

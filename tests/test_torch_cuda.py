@@ -11,6 +11,7 @@ kernels take in another order than cuBLAS and PyTorch's reductions.
 """
 
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -54,9 +55,29 @@ def _mlp_weights(dims, skip_at, seed):
     ([39, 256, 256, 256, 217, 256, 256, 256, 256, 259], 4, "tanh", 3001),
     ([289, 256, 256, 256, 256, 3], None, "sigmoid", 130),
     ([7, 5, 3], None, "tanh", 65),
-    ([39, 380, 3], None, "none", 77),
+    ([295, 256, 259], None, "none", 77),
 ])
 def test_fused_mlp_kernel(cuda, dims, skip_at, act, n):
+    _check_fused_mlp(cuda, dims, skip_at, act, n)
+
+
+VF_DIMS = [39, 256, 256, 256, 217, 256, 256, 256, 256, 259]
+COLOUR_DIMS = [289, 256, 256, 256, 256, 3]
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 3001])
+@pytest.mark.parametrize("net", ["vf", "colour"])
+def test_fused_mlp_kernel_around_the_point_tile(cuda, net, n):
+    """Point counts around the kernel's 128-point tile (3001 is a multiple
+    of neither 64 nor 128), at the shipped VF widths (skip at layer 4) and
+    with the 3-wide colour head."""
+    if net == "vf":
+        _check_fused_mlp(cuda, VF_DIMS, 4, "tanh", n)
+    else:
+        _check_fused_mlp(cuda, COLOUR_DIMS, None, "sigmoid", n)
+
+
+def _check_fused_mlp(cuda, dims, skip_at, act, n):
     weights = _mlp_weights(dims, skip_at, seed=n)
     x = torch.from_numpy(np.random.RandomState(1).uniform(
         -1, 1, (n, dims[0])).astype(np.float32))
@@ -70,15 +91,51 @@ def test_fused_mlp_kernel(cuda, dims, skip_at, act, n):
 
 
 def test_fused_mlp_refuses_strided_and_wide(cuda):
+    """Strided inputs are refused, and so are layer inputs wider than 296
+    and hidden layers wider than 256; the skip layer's 295 inputs (a
+    256-wide layer plus the 39-wide input) run."""
     weights = [(w.to(cuda), b.to(cuda))
                for w, b in _mlp_weights([39, 64, 3], None, 0)]
     x = torch.zeros((8, 78), device=cuda)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fused_mlp(weights, x)
-    wide = [(w.to(cuda), b.to(cuda))
-            for w, b in _mlp_weights([39, 512, 3], None, 0)]
-    with pytest.raises(ValueError, match="widths up to"):
-        fused_mlp(wide, torch.zeros((8, 39), device=cuda))
+    for dims in ([39, 512, 3], [300, 64, 3], [39, 257, 3]):
+        wide = [(w.to(cuda), b.to(cuda))
+                for w, b in _mlp_weights(dims, None, 0)]
+        with pytest.raises(ValueError, match="widths up to"):
+            fused_mlp(wide, torch.zeros((8, dims[0]), device=cuda))
+    _check_fused_mlp(cuda, [39, 256, 256, 3], 2, "tanh", 200)
+
+
+def _kernels_per_call(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.01)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_each_wrapper_call_enqueues_one_kernel(cuda):
+    weights = [(w.to(cuda), b.to(cuda))
+               for w, b in _mlp_weights(VF_DIMS, 4, 0)]
+    x = torch.rand((1000, 39), device=cuda)
+    assert _kernels_per_call(
+        lambda: fused_mlp(weights, x, skip_at=4, final_act="tanh")) == 1
+    inputs = [a.to(cuda) for a in _march_inputs(64, 130)]
+    params = DensityParams(*(torch.tensor(v, device=cuda)
+                             for v in (0.5, 100.0, 0.7)))
+    taps = torch.full((11,), 0.09, device=cuda)
+    kw = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0, mean_bounds=(0.6, 1.0),
+              cutoff=-0.5, dir_to_normal_th=-2.0, normalize=True)
+    for rgb in (inputs[3], None):
+        assert _kernels_per_call(lambda: fused_ray_march(
+            *inputs[:3], rgb, params, taps, **kw)) == 1
 
 
 def _march_inputs(n_rays, n_samples, seed=0):
@@ -122,6 +179,46 @@ def test_fused_ray_march_kernel(cuda, n_rays, n_samples, th, annealed, white,
     for a, b, name in zip(out, ref, ("rgb", "depth", "weights")):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), err_msg=name,
                                    **TOL)
+
+
+@pytest.mark.parametrize("raw,beta_bounds", [
+    ((0.01, -80.0, 0.2), (0.3, 1e9)),    # beta and mean below, scale < 0
+    ((5.0, 0.5, 1.7), (1e-4, 2.0)),      # beta and mean above, |scale| < 1
+])
+def test_fused_ray_march_clamps_raw_parameters(cuda, raw, beta_bounds):
+    """The kernel's prologue clamps the raw density parameters as the plain
+    version's get_beta / get_scale / get_mean do."""
+    inputs = _march_inputs(64, 130, seed=2)
+    kw = dict(beta_bounds=beta_bounds, scale_min=1.0, mean_bounds=(0.6, 1.0),
+              cutoff=-0.5, dir_to_normal_th=-0.2, normalize=True)
+    taps = torch.full((11,), 0.09)
+    ref = ray_march_reference(*inputs, DensityParams(
+        *(torch.tensor(v) for v in raw)), taps, **kw)
+    out = fused_ray_march(*(a.to(cuda) for a in inputs), DensityParams(
+        *(torch.tensor(v, device=cuda) for v in raw)), taps.to(cuda), **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip(out, ref, ("rgb", "depth", "weights")):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("n_samples", [100, 130])
+def test_fused_ray_march_weights_only(cuda, n_samples):
+    """With no rgb samples the kernel writes the weights alone, equal to
+    the plain version's weights with zero rgb."""
+    normals, dirs, z, rgb = _march_inputs(1024, n_samples, seed=4)
+    params = DensityParams(*(torch.tensor(v) for v in (0.5, 100.0, 0.7)))
+    taps = torch.full((11,), 1.0 / 11)
+    kw = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0, mean_bounds=(0.6, 1.0),
+              cutoff=-0.5, dir_to_normal_th=-2.0, normalize=True)
+    _, _, ref = ray_march_reference(normals, dirs, z, torch.zeros_like(rgb),
+                                    params, taps, **kw)
+    rgb_out, depth_out, weights = fused_ray_march(
+        normals.to(cuda), dirs.to(cuda), z.to(cuda), None,
+        DensityParams(*(v.to(cuda) for v in params)), taps.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert rgb_out is None and depth_out is None
+    np.testing.assert_allclose(weights.cpu().numpy(), ref.numpy(), **TOL)
 
 
 def test_fused_ray_march_refuses_too_many_samples(cuda):

@@ -3,7 +3,9 @@ CPU (its plain version) against JAX ``fused_ray_march`` with the Pallas
 kernel in interpret mode and against JAX ``ray_march_reference``, at
 rtol 1e-4 / atol 1e-5 (as ``tests/test_pallas_kernels.py``). Inputs have
 smooth structure so that sign flips (surface crossings) exist; the back-face
-threshold runs at -0.2, where the branch fires, and at the shipped -2.
+threshold runs at -0.2, where the branch fires, and at the shipped -2. Raw
+density parameters beyond each clamp and the coarse pass's weights-only mode
+(no rgb samples) are held to JAX too.
 
 The CUDA kernel runs only on a card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` check it there.
@@ -38,22 +40,28 @@ def _inputs(n_rays, n_samples, seed=0):
     return normals, dirs, z, rgb
 
 
-def _bounds(th):
-    return dict(beta_bounds=(1e-4, 1e9), scale_min=1.0,
+def _bounds(th, beta_bounds=(1e-4, 1e9)):
+    return dict(beta_bounds=beta_bounds, scale_min=1.0,
                 mean_bounds=(0.6, 1.0), cutoff=-0.5, dir_to_normal_th=th)
 
 
-def _run_both(n_rays, n_samples, taps, params, th, normalize, white, seed=0):
+def _run_both(n_rays, n_samples, taps, params, th, normalize, white, seed=0,
+              beta_bounds=(1e-4, 1e9), weights_only=False):
+    """Ours, the Pallas kernel (interpret mode) and the XLA reference on the
+    same inputs. ``weights_only``: ours gets no rgb samples, JAX zero rgb."""
     normals, dirs, z, rgb = _inputs(n_rays, n_samples, seed)
-    kw = dict(normalize=normalize, white_background=white, **_bounds(th))
+    kw = dict(normalize=normalize, white_background=white,
+              **_bounds(th, beta_bounds))
     jp = JParams(*(jnp.float32(v) for v in params))
+    j_rgb = np.zeros_like(rgb) if weights_only else rgb
     jargs = (jnp.asarray(normals), jnp.asarray(dirs), jnp.asarray(z),
-             jnp.asarray(rgb), jp, jnp.asarray(taps, jnp.float32))
+             jnp.asarray(j_rgb), jp, jnp.asarray(taps, jnp.float32))
     pallas = jmarch.fused_ray_march(*jargs, block_rays=32, interpret=True,
                                     **kw)
     xla = jmarch.ray_march_reference(*jargs, **kw)
     ours = fused_ray_march(
-        *(torch.from_numpy(a) for a in (normals, dirs, z, rgb)),
+        *(torch.from_numpy(a) for a in (normals, dirs, z)),
+        None if weights_only else torch.from_numpy(rgb),
         DensityParams(*(torch.tensor(v) for v in params)),
         torch.tensor(taps, dtype=torch.float32), **kw)
     return ours, pallas, xla
@@ -81,6 +89,35 @@ def test_annealed_taps_and_white_background(th):
                                    **TOL)
         np.testing.assert_allclose(a.numpy(), np.asarray(c), err_msg=name,
                                    **TOL)
+
+
+@pytest.mark.parametrize("params,beta_bounds", [
+    ((0.01, -80.0, 0.2), (0.3, 1e9)),    # beta and mean below, scale < 0
+    ((5.0, 0.5, 1.7), (1e-4, 2.0)),      # beta and mean above, |scale| < 1
+])
+def test_raw_parameters_beyond_each_clamp(params, beta_bounds):
+    """The raw density parameters are clamped as the JAX wrapper clamps them
+    (the CUDA kernel does it in its prologue)."""
+    ours, pallas, xla = _run_both(50, 130, [0.09] * 11, params, -0.2, True,
+                                  False, seed=2, beta_bounds=beta_bounds)
+    for a, b, c, name in zip(ours, pallas, xla, ("rgb", "depth", "weights")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("n_samples,taps", [(100, [1.0 / 11] * 11),
+                                            (130, ANNEALED)])
+def test_weights_only_coarse_mode(n_samples, taps):
+    """No rgb samples: the weights alone, equal to JAX's with zero rgb; rgb
+    and depth are None."""
+    ours, pallas, xla = _run_both(60, n_samples, taps, (0.5, 100.0, 0.7),
+                                  -2.0, True, False, seed=5,
+                                  weights_only=True)
+    assert ours[0] is None and ours[1] is None
+    np.testing.assert_allclose(ours[2].numpy(), np.asarray(pallas[2]), **TOL)
+    np.testing.assert_allclose(ours[2].numpy(), np.asarray(xla[2]), **TOL)
 
 
 def test_back_face_branch_fires_at_minus_0_2():

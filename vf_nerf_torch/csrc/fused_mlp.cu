@@ -8,45 +8,79 @@
 //
 // What bounds it on the H100: operations. The VF net costs 525,056 MACs per
 // point and the colour net 271,360, against 39 + 259 (or 289 + 3) floats of
-// input and output per point, so a render is ~320 GFLOP and ~0.3 GB: far
-// above the f32 ridge point (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte).
+// input and output per point, so a render is ~320 GFLOP and ~0.44 GB. The
+// products run on the tensor cores in TF32 with the 3xTF32 split, so the
+// card's ceiling is a third of its 495 TFLOP/s TF32 rate.
 //
-// Design. The TPU kernel kept all weights in VMEM; the ~3.2 MB of f32 weights
-// do not fit in 227 KB of shared memory, so here only the activation tile
-// lives in shared memory and the weights stream from global memory (they sit
-// in the 50 MB L2) layer by layer, through a double-buffered 16 x 128 tile.
-//   * A block of 256 threads owns 64 points. Two ping-pong activation buffers
-//     hold the tile TRANSPOSED (row k = feature, 64 points per row), so a
-//     thread reads its 4 points of one feature as one float4.
-//   * Each thread accumulates a 4-point x 8-output register tile with f32 FMA;
-//     the 16 x 16 threads cover 64 points x 128 outputs per pass, and a layer
-//     walks its outputs in passes of 128. A thread's 8 outputs are two runs
-//     of 4 (columns 4*tx and 64 + 4*tx), so the 16 threads of a row read the
-//     weight tile as consecutive float4s, free of bank conflicts.
-//   * Ragged K and N (39, 217, 259, 289, 3) are handled by zero-filling the
-//     weight tile and the activation rows up to the next multiple of 16; the
-//     point tail is masked, never padded in memory.
-//   * At the skip layer the embedded input is re-read from global memory into
-//     the rows after h, and the whole row is divided by sqrt(2).
-//   * Bias, ReLU and the final tanh / sigmoid are fused into the epilogue; the
-//     last layer writes straight from registers to the (points, N) output.
-// Tensor cores (TF32 / bf16 wgmma) and TMA are later work.
+// Numerics (3xTF32). Each operand x is split on chip into hi = tf32_rn(x)
+// and lo = tf32_rn(x - hi); every product is a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi. The dropped a_lo*b_lo term and the rounding of lo are ~2^-21
+// relative, so the products are of f32 grade; a single TF32 pass (2^-11) is
+// not, once the VF net's 9 layers amplify it. The tensor cores add into
+// their accumulator without rounding to nearest, so each k-tile's products
+// (16 inputs, 6 MMAs) go into a partial sum that starts from zero, and the
+// partial is added to the running f32 sum with an ordinary
+// (round-to-nearest) add. Chaining all products of a layer into one
+// accumulator instead lost several times the plain f32 chain's accuracy on
+// the card, and failed the render's check against the CPU plain path.
+//
+// Design.
+//   * A block of 256 threads, two warpgroups, owns 128 points; warpgroup w
+//     owns points 64w .. 64w + 63. The activations live in ONE shared buffer
+//     (128 x 300 f32, point-major, features contiguous; the pitch 300 = 12
+//     mod 32 makes the fragment loads free of bank conflicts) for all layers,
+//     updated in place: a layer's whole output (64 points x up to 256
+//     outputs per warpgroup) is held in registers, then written back after a
+//     barrier. So hidden widths are at most 256; inputs and the skip concat
+//     at most 296.
+//   * Products: wgmma.mma_async m64n128k8 TF32, A (the activations) from
+//     registers, split into hi/lo as the fragments are loaded; B (the
+//     weights) from shared memory, K-major. A layer's outputs go in halves of
+//     128; the first half's sums wait in registers while the second runs.
+//   * Weights stream from global memory (they sit in the 50 MB L2) in tiles
+//     of 16 input rows x 128 outputs, in the folded (in, out) layout the
+//     wrapper passes, through a ring of 4 raw shared stages filled by
+//     cp.async (16-byte copies where the layer's width allows, 4-byte copies
+//     otherwise) whose completion arrives on one mbarrier per stage, 4 tiles
+//     ahead across layer boundaries. While the tensor cores run tile t, all
+//     threads split tile t + 1 on chip into hi and lo copies, transposed to
+//     the K-major core-matrix layout wgmma reads (double-buffered). Each tile
+//     is read from L2 once per 128 points. Tiles are 16 inputs deep because
+//     each tile costs a barrier, a wait for the tensor cores and a flush of
+//     the partial sum; 8-deep tiles were slower on the card.
+//   * Ragged K and N (39, 217, 259, 289, 3): weight rows and columns outside
+//     (K, N) land as zeros and activation columns are zero-padded to a
+//     multiple of 8; the point tail is masked, never padded in memory.
+//   * Bias, ReLU and the final tanh / sigmoid are fused into the epilogues.
+//     The last layer walks its chunks of 256 outputs last-first: earlier
+//     chunks write from registers to the (points, N) output, and the final
+//     one (outputs 0..255) goes through the then free activation buffer so
+//     that the output rows are written with coalesced stores.
+//   * The input tile lands by cp.async; the skip's x columns are loaded with
+//     16 loads in flight per lane. Index loops run warps over rows and lanes
+//     over columns, so they need no integer division.
+// Clusters with a TMA multicast of each weight tile are later work.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kThreads = 256;
-constexpr int kTileP = 64;    // points per block
-constexpr int kTileN = 128;   // outputs per pass
-constexpr int kChunkK = 16;   // input rows per weight stage
-constexpr int kTM = 4;        // points per thread
-constexpr int kTN = 8;        // outputs per thread: two runs of 4
-constexpr int kHalfN = kTileN / 2;
-constexpr int kWStage = kChunkK * kTileN;
+constexpr int kThreads = 256;               // two warpgroups
+constexpr int kTileP = 128;                 // points per block
+constexpr int kChunkN = 256;                // outputs held per pass
+constexpr int kHalfN = 128;                 // outputs per wgmma
+constexpr int kTileK = 16;                  // weight rows per tile: 2 k-steps
+constexpr int kStages = 4;                  // raw weight ring
+constexpr int kActLd = 300;                 // activation pitch, 12 mod 32
+constexpr int kMaxWidth = 296;              // widest input the pitch holds
+constexpr int kRaw = kTileK * kHalfN;       // floats per raw stage
+constexpr int kRowsPerWarp = kTileP / (kThreads / 32);
+constexpr size_t kSmemBytes =
+    (size_t)(kTileP * kActLd + kStages * kRaw + 2 * 2 * kRaw) * sizeof(float);
 
 struct MlpDesc {
   const float* w[kMaxLayers];  // (K, N) row-major: in x out
@@ -56,155 +90,428 @@ struct MlpDesc {
   int n_layers;
   int skip_at;    // -1: no skip
   int final_act;  // 0 none, 1 tanh, 2 sigmoid
-  int rows;       // rows of each activation buffer, a multiple of kChunkK
 };
 
 __device__ __forceinline__ int round_up(int a, int b) {
   return (a + b - 1) / b * b;
 }
 
-// Stage i of the weight tile: thread-strided 16 x 128 block of W starting at
-// (k0, n0), zero outside (K, N).
-__device__ __forceinline__ void load_w_regs(float (&r)[kWStage / kThreads],
-                                            const float* __restrict__ w,
-                                            int K, int N, int k0, int n0,
-                                            int tid) {
-#pragma unroll
-  for (int s = 0; s < kWStage / kThreads; ++s) {
-    const int i = tid + s * kThreads;
-    const int gk = k0 + i / kTileN;
-    const int gn = n0 + i % kTileN;
-    r[s] = (gk < K && gn < N) ? __ldg(w + (size_t)gk * N + gn) : 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// The stage's mbarrier completes its phase once every thread's copies landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
 
-__device__ __forceinline__ void store_w_regs(
-    const float (&r)[kWStage / kThreads], float* tile, int tid) {
-#pragma unroll
-  for (int s = 0; s < kWStage / kThreads; ++s) tile[tid + s * kThreads] = r[s];
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// Shared-memory matrix descriptor of a K-major, unswizzled B tile: core
+// matrices of 8 rows (outputs) x 16 bytes (4 inputs), 128 bytes each; the
+// next 4 inputs at +128 bytes (leading byte offset), the next 8 outputs at
+// +512 bytes (stride byte offset: the 4 core matrices of a 16-input tile).
+__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(512 >> 4) << 32);
+}
+
+#define VFN_R8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128 per warpgroup) = a * b (+ d unless scale_d is 0); a: this
+// thread's m64k8 TF32 fragment, b: descriptor of the k8 x n128 tile.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %69, p, "
+      "1, 1;\n}\n"
+      : VFN_R8(0), VFN_R8(8), VFN_R8(16), VFN_R8(24), VFN_R8(32), VFN_R8(40),
+        VFN_R8(48), VFN_R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+}
+
+#undef VFN_R8
+
+// Keeps the compiler from moving uses of wgmma's registers across the wait.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// First output of a layer's last chunk of kChunkN outputs: chunks are
+// walked last-first.
+__device__ __forceinline__ int last_chunk(int n) {
+  return (n - 1) / kChunkN * kChunkN;
+}
+
+// Halves of kHalfN outputs in the chunk starting at n0.
+__device__ __forceinline__ int halves(int n, int n0) {
+  return (min(n - n0, kChunkN) + kHalfN - 1) / kHalfN;
+}
+
+// Position of the weight tile the producer fills next: layer, first output
+// of the chunk, half, first input row. Tiles go layer by layer, chunk by
+// chunk, half by half, k-step by k-step: the order the consumer walks them.
+struct Cursor {
+  int layer, n0, half, k0;
+
+  __device__ __forceinline__ void advance(const MlpDesc& d) {
+    k0 += kTileK;
+    if (k0 < d.k[layer]) return;
+    k0 = 0;
+    if (++half < halves(d.n[layer], n0)) return;
+    half = 0;
+    n0 -= kChunkN;
+    if (n0 < 0 && ++layer < d.n_layers) n0 = last_chunk(d.n[layer]);
+  }
+};
+
+// Every thread copies its share of the tile at `c` into the raw stage
+// (rows k, 128 output columns, zero outside (K, N)) and arrives on the
+// stage's barrier when its copies land. Warp w copies rows w and w + 8.
+__device__ __forceinline__ void issue_tile(const Cursor& c, const MlpDesc& d,
+                                           float* raw, uint32_t bar,
+                                           int warp, int lane) {
+  const float* __restrict__ W = d.w[c.layer];
+  const int K = d.k[c.layer], N = d.n[c.layer];
+  const int n0 = c.n0 + c.half * kHalfN;
+  const bool vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int gk = c.k0 + warp + 8 * rr;
+    const float* row = W + (size_t)gk * N + n0;
+    float* dst = raw + (warp + 8 * rr) * kHalfN;
+    if (vec) {
+      const int col = 4 * lane;
+      const bool ok = gk < K && n0 + col < N;
+      cp_async16(smem_u32(dst + col), ok ? row + col : W, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int col = lane; col < kHalfN; col += 32) {
+        const bool ok = gk < K && n0 + col < N;
+        cp_async4(smem_u32(dst + col), ok ? row + col : W, ok ? 4 : 0);
+      }
+    }
+  }
+  cp_async_arrive(bar);
+}
+
+// Split the raw tile (rows k, columns n) into TF32 hi and lo copies in the
+// K-major core-matrix layout of b_desc: thread (n, kc) moves inputs
+// 4kc .. 4kc + 3 of output n as one 16-byte store per copy, for two kc.
+__device__ __forceinline__ void split_tile(const float* raw, float* hi,
+                                           float* lo, int tid) {
+  const int n = tid % kHalfN;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int kc = tid / kHalfN + 2 * kk;
+    float4 h, l;
+    uint32_t a, b;
+    split(raw[(4 * kc + 0) * kHalfN + n], a, b);
+    h.x = __uint_as_float(a);
+    l.x = __uint_as_float(b);
+    split(raw[(4 * kc + 1) * kHalfN + n], a, b);
+    h.y = __uint_as_float(a);
+    l.y = __uint_as_float(b);
+    split(raw[(4 * kc + 2) * kHalfN + n], a, b);
+    h.z = __uint_as_float(a);
+    l.z = __uint_as_float(b);
+    split(raw[(4 * kc + 3) * kHalfN + n], a, b);
+    h.w = __uint_as_float(a);
+    l.w = __uint_as_float(b);
+    const int at = ((n / 8) * 4 + kc) * 32 + (n % 8) * 4;
+    *reinterpret_cast<float4*>(hi + at) = h;
+    *reinterpret_cast<float4*>(lo + at) = l;
+  }
+  // Generic-proxy writes, read next by wgmma (the async proxy).
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The skip's x columns: act[p][c0 + j] = x[p_base + p][j] * scale for the
+// `span` columns j, zero for j >= in_dim and past the point tail. Warp w
+// takes rows w, w + 8, ..., with all 16 of a lane's loads in flight.
+__device__ __forceinline__ void load_x_scaled(float* act,
+                                              const float* __restrict__ x,
+                                              int c0, int span, int in_dim,
+                                              int p_base, int n_points,
+                                              float scale, int warp,
+                                              int lane) {
+  for (int j = lane; j < span; j += 32) {
+    float v[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int gp = p_base + warp + 8 * r;
+      v[r] = (j < in_dim && gp < n_points)
+                 ? __ldg(x + (size_t)gp * in_dim + j) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      act[(warp + 8 * r) * kActLd + c0 + j] = v[r] * scale;
+    }
+  }
+}
+
+__device__ __forceinline__ float final_act(float v, int act) {
+  if (act == 1) return tanhf(v);
+  if (act == 2) return 1.f / (1.f + expf(-v));
+  return v;
+}
+
+// A warpgroup's 64 x 128 half (outputs h0 .. h0 + 127 of the chunk) plus
+// bias, through ReLU (hidden) or the final activation (last), into the
+// activation buffer at column h0 + output.
+__device__ __forceinline__ void half_to_act(const float (&v)[64], float* act,
+                                            const float* __restrict__ B,
+                                            int N, int n0, int h0, int row,
+                                            int t, bool last, int fin) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int n = n0 + h0 + 8 * i + 2 * t;
+    const float b0 = n < N ? __ldg(B + n) : 0.f;
+    const float b1 = n + 1 < N ? __ldg(B + n + 1) : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = v[4 * i + 2 * h] + b0, v1 = v[4 * i + 2 * h + 1] + b1;
+      if (last) {
+        v0 = final_act(v0, fin);
+        v1 = final_act(v1, fin);
+      } else {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      *reinterpret_cast<float2*>(act + (row + 8 * h) * kActLd + h0 + 8 * i +
+                                 2 * t) = make_float2(v0, v1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
-                 int n_points, int in_dim, MlpDesc d) {
+                 int n_points, int in_dim, const MlpDesc d) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* src = smem;                             // rows x kTileP
-  float* dst = smem + d.rows * kTileP;           // rows x kTileP
-  float* wtile = smem + 2 * d.rows * kTileP;     // 2 x kChunkK x kTileN
+  float* act = reinterpret_cast<float*>(smem4);   // kTileP x kActLd
+  float* split_buf = act + kTileP * kActLd;       // 2 x (hi, lo) x kRaw
+  float* raw = split_buf + 2 * 2 * kRaw;          // kStages x kRaw
+  __shared__ uint64_t full[kStages];
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output group: 4*tx .. +3 and 64 + 4*tx .. +3
-  const int ty = tid / 16;  // point group: points ty*4 .. ty*4+3
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = (warp / 4) * 64 + (warp % 4) * 16 + g;  // fragment row
   const int p_base = blockIdx.x * kTileP;
-  const float kSqrt2 = 1.41421356237309515f;
+  // 1/sqrt(2) in f32: PyTorch's CUDA division by a scalar multiplies by
+  // the reciprocal too (within 1 ulp of dividing).
+  const float kRsqrt2 = 0.70710678118654752f;
 
-  // Input tile, transposed, zero rows up to the next multiple of kChunkK.
-  {
-    const int in_rows = round_up(in_dim, kChunkK);
-    for (int i = tid; i < in_rows * kTileP; i += kThreads) {
-      const int p = i / in_rows, k = i % in_rows;
-      const int gp = p_base + p;
-      src[k * kTileP + p] =
-          (k < in_dim && gp < n_points) ? x[(size_t)gp * in_dim + k] : 0.f;
+  int n_tiles = 0;
+  for (int l = 0; l < d.n_layers; ++l) {
+    for (int n0 = 0; n0 < d.n[l]; n0 += kChunkN) {
+      n_tiles += halves(d.n[l], n0) * (round_up(d.k[l], kTileK) / kTileK);
     }
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
+                   :: "r"(smem_u32(&full[s])), "r"(kThreads) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  // The first kStages weight tiles go in flight before the input loads.
+  Cursor prod{0, last_chunk(d.n[0]), 0, 0};
+  int issued = 0;
+  for (; issued < kStages && issued < n_tiles; ++issued) {
+    issue_tile(prod, d, raw + issued * kRaw, smem_u32(&full[issued]), warp,
+               lane);
+    prod.advance(d);
+  }
+
+  // Input tile by cp.async, zero past the point tail and up to a multiple of
+  // 8 features; warp w takes rows w, w + 8, ...
+  {
+    const int cols = round_up(in_dim, 8);
+    for (int j = lane; j < cols; j += 32) {
+#pragma unroll 4
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int p = warp + 8 * r, gp = p_base + p;
+        const bool ok = j < in_dim && gp < n_points;
+        cp_async4(smem_u32(act + p * kActLd + j),
+                  ok ? x + (size_t)gp * in_dim + j : x, ok ? 4 : 0);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  mbar_wait(smem_u32(&full[0]), 0);
+  split_tile(raw, split_buf, split_buf + kRaw, tid);
+  __syncthreads();
+
+  float hold[64], acc[64], part[64];
+  int tile = 0;
   int width = in_dim;
   for (int layer = 0; layer < d.n_layers; ++layer) {
     if (layer == d.skip_at) {
-      // concat([h, x]) / sqrt(2), in place in src.
-      for (int i = tid; i < width * kTileP; i += kThreads) src[i] /= kSqrt2;
-      const int span = round_up(width + in_dim, kChunkK) - width;
-      for (int i = tid; i < span * kTileP; i += kThreads) {
-        const int p = i / span, j = i % span;
-        const int gp = p_base + p;
-        src[(width + j) * kTileP + p] =
-            (j < in_dim && gp < n_points)
-                ? x[(size_t)gp * in_dim + j] / kSqrt2 : 0.f;
+      // concat([h, x]) / sqrt(2), in place.
+      for (int p = warp; p < kTileP; p += 8) {
+        for (int k = lane; k < width; k += 32) act[p * kActLd + k] *= kRsqrt2;
       }
+      load_x_scaled(act, x, width, round_up(width + in_dim, 8) - width,
+                    in_dim, p_base, n_points, kRsqrt2, warp, lane);
       width += in_dim;
       __syncthreads();
     }
 
     const int K = d.k[layer], N = d.n[layer];
-    const float* __restrict__ W = d.w[layer];
     const float* __restrict__ B = d.b[layer];
     const bool last = layer == d.n_layers - 1;
-    const int k_chunks = round_up(K, kChunkK) / kChunkK;
-    const int n_rows = round_up(N, kChunkK);
 
-    for (int n0 = 0; n0 < N; n0 += kTileN) {
-      float acc[kTM][kTN];
+    for (int n0 = last_chunk(N); n0 >= 0; n0 -= kChunkN) {
+      const int nh = halves(N, n0);
+      for (int half = 0; half < nh; ++half) {
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        for (int k0 = 0; k0 < K; k0 += kTileK, ++tile) {
+          const float* sb = split_buf + (tile & 1) * 2 * kRaw;
+          const float* a = act + row * kActLd + k0 + t;
+          // The tile's second k-step only where the layer has inputs there
+          // (activation columns past round_up(K, 8) are not written).
+          const bool two = k0 + 8 < K;
+          uint32_t ah[4], al[4], ah2[4], al2[4];
+          split(a[0], ah[0], al[0]);
+          split(a[8 * kActLd], ah[1], al[1]);
+          split(a[4], ah[2], al[2]);
+          split(a[8 * kActLd + 4], ah[3], al[3]);
+          if (two) {
+            split(a[8], ah2[0], al2[0]);
+            split(a[8 * kActLd + 8], ah2[1], al2[1]);
+            split(a[12], ah2[2], al2[2]);
+            split(a[8 * kActLd + 12], ah2[3], al2[3]);
+          }
+          // Inputs 8ks .. 8ks + 7 are core matrices 2ks, 2ks + 1 (+64 floats).
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          wgmma_tf32(part, al, b_desc(sb), 0);
+          wgmma_tf32(part, ah, b_desc(sb + kRaw), 1);
+          wgmma_tf32(part, ah, b_desc(sb), 1);
+          if (two) {
+            wgmma_tf32(part, al2, b_desc(sb + 64), 1);
+            wgmma_tf32(part, ah2, b_desc(sb + kRaw + 64), 1);
+            wgmma_tf32(part, ah2, b_desc(sb + 64), 1);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // The next tile is split while the tensor cores run this one.
+          if (tile + 1 < n_tiles) {
+            const int s = (tile + 1) % kStages;
+            mbar_wait(smem_u32(&full[s]), ((tile + 1) / kStages) & 1);
+            float* nb = split_buf + ((tile + 1) & 1) * 2 * kRaw;
+            split_tile(raw + s * kRaw, nb, nb + kRaw, tid);
+          }
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          fence_regs(part);
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-      float wreg[kWStage / kThreads];
-      load_w_regs(wreg, W, K, N, 0, n0, tid);
-      store_w_regs(wreg, wtile, tid);
-      __syncthreads();
-
-      for (int c = 0; c < k_chunks; ++c) {
-        const bool more = c + 1 < k_chunks;
-        if (more) load_w_regs(wreg, W, K, N, (c + 1) * kChunkK, n0, tid);
-        const float* wt = wtile + (c & 1) * kWStage;
-        const float* a_rows = src + c * kChunkK * kTileP + ty * kTM;
-#pragma unroll
-        for (int kk = 0; kk < kChunkK; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(a_rows + kk * kTileP);
-          const float4 w0 =
-              *reinterpret_cast<const float4*>(wt + kk * kTileN + tx * 4);
-          const float4 w1 = *reinterpret_cast<const float4*>(
-              wt + kk * kTileN + kHalfN + tx * 4);
-          const float av[kTM] = {a.x, a.y, a.z, a.w};
-          const float wv[kTN] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int i = 0; i < kTM; ++i)
-#pragma unroll
-            for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          for (int i = 0; i < 64; ++i) acc[i] += part[i];
+          // Every thread is done with the raw stage refilled next and with
+          // the split tile the next k-step reads.
+          __syncthreads();
+          if (issued < n_tiles) {
+            issue_tile(prod, d, raw + (issued % kStages) * kRaw,
+                       smem_u32(&full[issued % kStages]), warp, lane);
+            prod.advance(d);
+            ++issued;
+          }
         }
-        if (more) store_w_regs(wreg, wtile + ((c + 1) & 1) * kWStage, tid);
-        __syncthreads();
+        if (half == 0 && nh == 2) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) hold[i] = acc[i];
+        }
       }
 
-      // Epilogue: bias, then ReLU into the next buffer (zero rows past N up
-      // to n_rows), or the final activation straight to global memory.
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int n = n0 + (j < 4 ? 0 : kHalfN - 4) + tx * 4 + j;
-        const float bias = n < N ? __ldg(B + n) : 0.f;
-        if (!last) {
-          if (n < n_rows) {
-            float4 v;
-            v.x = n < N ? fmaxf(acc[0][j] + bias, 0.f) : 0.f;
-            v.y = n < N ? fmaxf(acc[1][j] + bias, 0.f) : 0.f;
-            v.z = n < N ? fmaxf(acc[2][j] + bias, 0.f) : 0.f;
-            v.w = n < N ? fmaxf(acc[3][j] + bias, 0.f) : 0.f;
-            *reinterpret_cast<float4*>(dst + n * kTileP + ty * kTM) = v;
+      if (!last || n0 == 0) {
+        // A hidden layer (N <= kChunkN), or the last layer's final chunk:
+        // every warp is done reading this layer's input, so the output
+        // replaces it, zero from N up to the half's end (weights and bias
+        // there are zero).
+        __syncthreads();
+        if (nh == 2) {
+          half_to_act(hold, act, B, N, n0, 0, row, t, last, d.final_act);
+          half_to_act(acc, act, B, N, n0, kHalfN, row, t, last, d.final_act);
+        } else {
+          half_to_act(acc, act, B, N, n0, 0, row, t, last, d.final_act);
+        }
+        __syncthreads();
+        if (last) {
+          // Coalesced rows of the (points, N) output, outputs 0..nc-1.
+          const int nc = min(N, kChunkN);
+          for (int p = warp; p < kTileP && p_base + p < n_points; p += 8) {
+            float* orow = out + (size_t)(p_base + p) * N;
+            for (int n = lane; n < nc; n += 32) orow[n] = act[p * kActLd + n];
           }
-        } else if (n < N) {
+        }
+      } else {
+        // An earlier chunk of the last layer: straight from registers.
 #pragma unroll
-          for (int i = 0; i < kTM; ++i) {
-            const int gp = p_base + ty * kTM + i;
-            if (gp >= n_points) continue;
-            float v = acc[i][j] + bias;
-            if (d.final_act == 1) {
-              v = tanhf(v);
-            } else if (d.final_act == 2) {
-              v = 1.f / (1.f + expf(-v));
+        for (int i = 0; i < 16; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int gp = p_base + row + (e >> 1) * 8;
+            const int n = n0 + 8 * i + 2 * t + (e & 1);
+            const float v0 = nh == 2 ? hold[4 * i + e] : acc[4 * i + e];
+            if (n < N && gp < n_points) {
+              out[(size_t)gp * N + n] =
+                  final_act(v0 + __ldg(B + n), d.final_act);
             }
-            out[(size_t)gp * N + n] = v;
+            if (nh == 2 && n + kHalfN < N && gp < n_points) {
+              out[(size_t)gp * N + n + kHalfN] =
+                  final_act(acc[4 * i + e] + __ldg(B + n + kHalfN),
+                            d.final_act);
+            }
           }
         }
       }
     }
-    __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
     width = N;
   }
 }
@@ -213,10 +520,11 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 extern "C" {
 
-// Largest activation width (in features) the kernel's shared memory holds.
-int vfn_fused_mlp_max_width() {
-  return ((232448 / 4 - 2 * kWStage) / (2 * kTileP)) / kChunkK * kChunkK;
-}
+// Widest layer input (and network input) the activation buffer holds.
+int vfn_fused_mlp_max_width() { return kMaxWidth; }
+
+// Widest hidden layer: a hidden layer's output is held in registers whole.
+int vfn_fused_mlp_max_hidden() { return kChunkN; }
 
 // Launch on `stream`. `weights` and `biases` are HOST arrays of device
 // pointers, `k_dims` / `n_dims` host arrays of the layer widths. Returns the
@@ -225,28 +533,28 @@ int vfn_fused_mlp(const float* x, float* out, int n_points, int in_dim,
                   const float* const* weights, const float* const* biases,
                   const int* k_dims, const int* n_dims, int n_layers,
                   int skip_at, int final_act, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  if (n_layers < 1 || n_layers > kMaxLayers || in_dim > kMaxWidth) {
+    return (int)cudaErrorInvalidValue;
+  }
   MlpDesc d;
-  int widest = in_dim;
   for (int i = 0; i < n_layers; ++i) {
+    if (k_dims[i] > kMaxWidth || (i < n_layers - 1 && n_dims[i] > kChunkN)) {
+      return (int)cudaErrorInvalidValue;
+    }
     d.w[i] = weights[i];
     d.b[i] = biases[i];
     d.k[i] = k_dims[i];
     d.n[i] = n_dims[i];
-    widest = widest > k_dims[i] ? widest : k_dims[i];
-    widest = widest > n_dims[i] ? widest : n_dims[i];
   }
   d.n_layers = n_layers;
   d.skip_at = skip_at;
   d.final_act = final_act;
-  d.rows = (widest + kChunkK - 1) / kChunkK * kChunkK;
-  if (d.rows > vfn_fused_mlp_max_width()) return (int)cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)d.rows * kTileP + 2 * kWStage) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_points + kTileP - 1) / kTileP;
-  fused_mlp_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  fused_mlp_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       x, out, n_points, in_dim, d);
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def sources() -> List[Path]:
@@ -69,8 +70,11 @@ class KernelLibrary:
         lib.vfn_fused_mlp.restype = _I
         lib.vfn_fused_mlp_max_width.argtypes = []
         lib.vfn_fused_mlp_max_width.restype = _I
-        lib.vfn_ray_march.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _P]
+        lib.vfn_fused_mlp_max_hidden.argtypes = []
+        lib.vfn_fused_mlp_max_hidden.restype = _I
+        lib.vfn_ray_march.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _F, _F, _F, _F, _F, _F, _F,
+                                      _P, _P, _P, _I, _I, _I, _I, _P]
         lib.vfn_ray_march.restype = _I
         lib.vfn_ray_march_max_samples.argtypes = []
         lib.vfn_ray_march_max_samples.restype = _I

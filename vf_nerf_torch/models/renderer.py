@@ -215,8 +215,8 @@ def render_rays(modules: VFNerfModules,
         vf_w, pts_coarse.reshape(-1, 3))[:, :3].reshape(
             n_rays, statics.n_coarse, 3).contiguous()
     _, _, weights_coarse = fused_ray_march(
-        normals_coarse, ray_dirs, z_coarse, torch.zeros_like(normals_coarse),
-        density_params, uniform, **march)
+        normals_coarse, ray_dirs, z_coarse, None, density_params, uniform,
+        **march)
     argmax_coarse = torch.argmax(weights_coarse, dim=-1)
 
     # ---- fine pass ---------------------------------------------------------

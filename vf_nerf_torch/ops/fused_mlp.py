@@ -80,7 +80,9 @@ def fused_mlp(weights: Weights, x: torch.Tensor,
     :return: (N, out_dim).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises.
+    or raises. The kernel computes in 3xTF32 on the tensor cores (of f32
+    grade) and takes layer inputs up to ``vfn_fused_mlp_max_width()`` (296)
+    and hidden layers up to ``vfn_fused_mlp_max_hidden()`` (256) wide.
     """
     if final_act not in _ACTS:
         raise ValueError(f"final_act must be one of {sorted(_ACTS)}")
@@ -98,10 +100,14 @@ def fused_mlp(weights: Weights, x: torch.Tensor,
                              f"one device; got {t.dtype} {t.device} "
                              f"contiguous={t.is_contiguous()}")
     lib = load_library()
-    widest = max([x.shape[1]] + [max(w.shape) for w, _ in weights])
-    if widest > lib.lib.vfn_fused_mlp_max_width():
-        raise ValueError(f"fused_mlp supports widths up to "
-                         f"{lib.lib.vfn_fused_mlp_max_width()}, got {widest}")
+    max_width = lib.lib.vfn_fused_mlp_max_width()
+    max_hidden = lib.lib.vfn_fused_mlp_max_hidden()
+    widest = max([x.shape[1]] + [w.shape[0] for w, _ in weights])
+    hidden = max([0] + [w.shape[1] for w, _ in weights[:-1]])
+    if widest > max_width or hidden > max_hidden:
+        raise ValueError(f"fused_mlp supports widths up to {max_width} "
+                         f"(layer inputs) and {max_hidden} (hidden layers); "
+                         f"got {widest} and {hidden}")
     n_layers = len(weights)
     out = torch.empty((x.shape[0], weights[-1][0].shape[1]),
                       dtype=torch.float32, device=x.device)
