@@ -290,3 +290,242 @@ def test_render_rays_on_card_matches_cpu(cuda):
     for k in ("rgb", "depth", "weights", "z_vals", "normals"):
         np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].numpy(),
                                    err_msg=k, rtol=1e-4, atol=1e-4)
+
+
+# ---- training: the MLP's save mode and gradient, the march's backward ----
+
+def _max_rel(a, b):
+    """max |a - b| / max |b|, on the CPU."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dims,skip_at,act,n", [
+    (VF_DIMS, 4, "tanh", 3001),
+    (COLOUR_DIMS, None, "sigmoid", 1001),
+    ([39, 64, 64, 64, 32], 2, "none", 129),
+])
+def test_fused_mlp_save_mode_and_gradient(cuda, dims, skip_at, act, n):
+    """With a gradient the kernel also saves the hidden activations: its
+    output equals the no-save launch bit for bit, the saved activations
+    equal the plain forward's, and FusedMLP's gradients (to x, each kernel
+    and bias) equal autograd through mlp_reference on the card within
+    1e-4·max|g| per tensor. A pre-activation within the kernel's rounding
+    of 0 flips its ReLU against the plain chain's and changes that point's
+    gradients, so the upstream gradient is zero on the (< 1 %) points whose
+    ReLU masks differ."""
+    weights = [(w.to(cuda).requires_grad_(True), b.to(cuda).requires_grad_(
+        True)) for w, b in _mlp_weights(dims, skip_at, seed=n)]
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (n, dims[0])).astype(np.float32)).to(cuda).requires_grad_(True)
+    flat = [t for wb in weights for t in wb]
+    with torch.no_grad():
+        plain_out = fused_mlp(weights, x, skip_at=skip_at, final_act=act)
+    before = fused_mlp.launches
+    out = fused_mlp(weights, x, skip_at=skip_at, final_act=act)
+    assert fused_mlp.launches == before + 1
+    assert out.grad_fn is not None and "FusedMLP" in type(out.grad_fn).__name__
+    assert torch.equal(out.detach(), plain_out)
+    acts = out.grad_fn.saved_tensors[1]
+    h, hidden = x.detach(), []
+    for i, (w, b) in enumerate(weights[:-1]):
+        if i == skip_at:
+            h = torch.cat([h, x.detach()], 1) / 2 ** 0.5
+        h = torch.relu(h @ w.detach() + b.detach())
+        hidden.append(h)
+    hidden = torch.cat(hidden, 1)
+    assert _max_rel(acts, hidden) < 1e-5
+    same = ((acts > 0) == (hidden > 0)).all(1)
+    assert float(same.float().mean()) >= 0.99
+    dy = torch.from_numpy(np.random.RandomState(2).randn(
+        n, dims[-1]).astype(np.float32)).to(cuda) * same[:, None]
+    got = torch.autograd.grad(out, [x] + flat, dy)
+    ref = torch.autograd.grad(mlp_reference(weights, x, skip_at, act),
+                              [x] + flat, dy)
+    for g, r in zip(got, ref):
+        assert _max_rel(g, r) < 1e-4
+
+
+def _march_grad_case(cuda, n_rays, n_samples, n_valid, white, normalize,
+                     params, beta_bounds=(1e-4, 1e9), weights_grad=False,
+                     weights_only=False, seed=0):
+    """ray_march_backward against autograd through ray_march_reference on
+    the card; returns the max relative errors."""
+    from vf_nerf_torch.ops.ray_march import (MarchStatics, ray_march_backward,
+                                             ray_march_backward_reference)
+    normals, dirs, z, rgb = (a.to(cuda) for a in
+                             _march_inputs(n_rays, n_samples, seed))
+    taps = torch.tensor([0.01, -0.02, 0.05, 0.1, 0.15, 0.4, 0.12, 0.08, 0.04,
+                         0.02, 0.01], device=cuda)
+    st = MarchStatics(beta_bounds, 1.0, (0.6, 1.0), -0.5, -0.2, normalize,
+                      white, n_valid)
+    scalars = torch.tensor(params, device=cuda)
+    rng = np.random.RandomState(seed + 1)
+    g_rgb = None if weights_only else torch.from_numpy(
+        rng.randn(n_rays, 3).astype(np.float32)).to(cuda)
+    g_depth = None if weights_only else torch.from_numpy(
+        rng.randn(n_rays).astype(np.float32)).to(cuda)
+    g_w = torch.from_numpy(rng.randn(n_rays, n_samples).astype(
+        np.float32)).to(cuda) if weights_grad or weights_only else None
+    c = None if weights_only else rgb
+    before = ray_march_backward.launches
+    got = ray_march_backward(normals, dirs, z, c, scalars, taps, st, g_rgb,
+                             g_depth, g_w)
+    torch.cuda.synchronize()
+    assert ray_march_backward.launches == before + 1
+    ref = ray_march_backward_reference(normals, dirs, z, c, scalars, taps, st,
+                                       g_rgb, g_depth, g_w)
+    got = (got[0], got[1], got[2].sum(0))
+    out = {}
+    for name, a, b in zip(("normals", "rgb", "scalars"), got, ref):
+        if b is None:
+            assert a is None
+            continue
+        assert bool(torch.isfinite(a).all())
+        out[name] = _max_rel(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-5 * max(float(b.abs().max()), 1.0),
+                                   err_msg=name)
+    return out
+
+
+@pytest.mark.parametrize("n_samples,n_valid,white,normalize", [
+    (200, 130, False, True),
+    (200, 200, False, True),
+    (200, 130, True, True),
+    (130, 60, False, False),
+    (40, 3, False, True),
+    (9, 9, True, True),
+])
+def test_ray_march_backward_kernel(cuda, n_samples, n_valid, white,
+                                   normalize):
+    _march_grad_case(cuda, 64, n_samples, n_valid, white, normalize,
+                     (0.5, 100.0, 0.7))
+
+
+@pytest.mark.parametrize("params,beta_bounds", [
+    ((0.3, 1.0, 0.6), (0.3, 1e9)),      # beta and mean at their clamps
+    ((0.2, 50.0, 0.9), (1e-4, 1e9)),
+])
+def test_ray_march_backward_at_clamp_edges(cuda, params, beta_bounds):
+    _march_grad_case(cuda, 64, 200, 130, False, True, params, beta_bounds,
+                     weights_grad=True, seed=3)
+
+
+def test_ray_march_backward_weights_only(cuda):
+    _march_grad_case(cuda, 32, 100, 100, False, True, (0.5, 100.0, 0.7),
+                     weights_only=True, seed=5)
+
+
+def test_fused_ray_march_grad_path_launches_both_kernels(cuda):
+    """A march with gradients runs one forward kernel, and its backward one
+    backward kernel (one CUDA kernel per call, by the profiler); the
+    gradients reach the raw density parameters through the clamps."""
+    from vf_nerf_torch.ops.ray_march import ray_march_backward
+    normals, dirs, z, rgb = (a.to(cuda) for a in _march_inputs(128, 200))
+    normals.requires_grad_(True)
+    rgb.requires_grad_(True)
+    params = DensityParams(*(torch.tensor(v, device=cuda, requires_grad=True)
+                             for v in (0.5, 100.0, 0.7)))
+    taps = torch.full((11,), 1.0 / 11, device=cuda)
+    kw = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0, mean_bounds=(0.6, 1.0),
+              cutoff=-0.5, dir_to_normal_th=-2.0, normalize=True,
+              n_valid=130)
+    counts = (fused_ray_march.launches, ray_march_backward.launches)
+    out = fused_ray_march(normals, dirs, z, rgb, params, taps, **kw)
+    loss = out[0].sum() + out[1].sum()
+    got = torch.autograd.grad(loss, [normals, rgb, *params])
+    torch.cuda.synchronize()
+    assert (fused_ray_march.launches - counts[0],
+            ray_march_backward.launches - counts[1]) == (1, 1)
+    ref_out = ray_march_reference(normals, dirs, z, rgb, params, taps, **kw)
+    ref = torch.autograd.grad(ref_out[0].sum() + ref_out[1].sum(),
+                              [normals, rgb, *params])
+    for g, r in zip(got, ref):
+        assert _max_rel(g, r) < 1e-4
+    from vf_nerf_torch.ops.ray_march import MarchStatics
+    st = MarchStatics((1e-4, 1e9), 1.0, (0.6, 1.0), -0.5, -2.0, True, False,
+                      130)
+    g_rgb = torch.ones((128, 3), device=cuda)
+    g_depth = torch.ones((128,), device=cuda)
+    scalars = torch.tensor([0.5, 100.0, 0.7], device=cuda)
+    assert _kernels_per_call(lambda: ray_march_backward(
+        normals.detach(), dirs, z, rgb.detach(), scalars, taps, st, g_rgb,
+        g_depth, None)) == 1
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The tiny config with static fine growth on the card: the loss and
+    its gradients equal the CPU plain path's from the same weights and
+    draws (loss rtol 1e-4, gradients 1e-3·max|g| per tensor: 3xTF32 MLP
+    products, sums in another order), and each of two train steps launches
+    5 fused MLPs, 2 marches and 1 march backward."""
+    from vf_nerf_torch.models.nerf import make_optimizer, param_groups
+    from vf_nerf_torch.ops.ray_march import ray_march_backward
+    from vf_nerf_torch.parallel import train_step as ts
+    cfg = _tiny_config()
+    cfg.ray_sampler_config.max_samples = 16
+    mods = VFNerfModules(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in mods.vf.layers:
+            (layer[0] if isinstance(layer, torch.nn.Sequential)
+             else layer).weight.mul_(2.5)
+    mods = mods.eval()
+    statics = RenderStatics.from_config(cfg, n_fine=16, train=False)
+    n = 64
+    sup = ts.SupervisionStatics.from_config(
+        cfg, "exterior_synthetic", n, statics.n_coarse + statics.n_fine,
+        0.15)
+    weights = schema.VFLossWeights(rgb=2.0, depth=0.5, unit_norm=0.1,
+                                   supervision=1.0, norm_smaller_than_one=0.1,
+                                   directional_derivatives=0.0)
+    loss_cfg = schema.VFLossConfig(norm_smaller_than_one_start=11000,
+                                   depth_loss_clamp=0.5)
+    rng = np.random.RandomState(0)
+    eye = torch.eye(4).expand(n, 4, 4).contiguous()
+    intr = eye.clone()
+    intr[:, 0, 0] = intr[:, 1, 1] = 30.0
+    intr[:, 0, 2], intr[:, 1, 2] = 20.0, 15.0
+    batch = {"uv": torch.from_numpy(rng.uniform(0, 40, (n, 2)).astype(
+        np.float32)), "pose": eye, "intrinsics": intr,
+        "rgb": torch.from_numpy(rng.rand(n, 3).astype(np.float32)),
+        "depth": torch.from_numpy(rng.uniform(1, 3, (n, 1)).astype(
+            np.float32))}
+    draws = ts.draw_step(statics, sup, n, torch.Generator().manual_seed(4),
+                         "cpu")
+    gpu = copy.deepcopy(mods).to(cuda)
+    results = []
+    for m, dev in ((mods, "cpu"), (gpu, cuda)):
+        loss_fn = ts.make_loss_fn(m, statics, sup, weights, loss_cfg)
+        total, _, _ = loss_fn(
+            {k: v.to(dev) for k, v in batch.items()},
+            {k: v.to(dev) for k, v in draws.items()}, 0,
+            torch.tensor(cfg.cos_sim_weights, device=dev), 0.0, 4.0,
+            torch.zeros(3, device=dev), 6,
+            (n * (statics.n_coarse + 6)) // 10)
+        grads = torch.autograd.grad(total, list(m.parameters()))
+        results.append((float(total.detach()), grads))
+    (cpu_loss, cpu_grads), (loss, grads) = results
+    np.testing.assert_allclose(loss, cpu_loss, rtol=1e-4)
+    for g, r in zip(grads, cpu_grads):
+        assert _max_rel(g, r) <= 1e-3
+
+    opt, _ = make_optimizer(cfg.scheduler_config, 100, duplicate_vf=True)
+    opt.init(param_groups(gpu))
+    step = ts.make_train_step(gpu, opt, statics, sup, weights, loss_cfg)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for _ in range(2):
+        before = (fused_mlp.launches, fused_ray_march.launches,
+                  ray_march_backward.launches)
+        sums = step(ts.zero_metric_sums(cuda),
+                    {k: v.to(cuda) for k, v in batch.items()}, 0,
+                    torch.tensor(cfg.cos_sim_weights, device=cuda), 0.0, 4.0,
+                    torch.zeros(3, device=cuda), n_fine_active=6,
+                    generator=gen)
+        torch.cuda.synchronize()
+        assert (fused_mlp.launches - before[0],
+                fused_ray_march.launches - before[1],
+                ray_march_backward.launches - before[2]) == (5, 2, 1)
+        assert np.isfinite(float(sums["loss"]))
+    assert opt.count == 2

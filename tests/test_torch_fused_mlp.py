@@ -28,7 +28,8 @@ from vf_nerf_tpu.ops import fused_mlp as jfused
 from vf_nerf_torch.config import parse_config
 from vf_nerf_torch.models.renderer import VFNerfModules
 from vf_nerf_torch.ops.embedding import positional_encoding
-from vf_nerf_torch.ops.fused_mlp import fused_mlp, mlp_reference
+from vf_nerf_torch.ops.fused_mlp import (fused_mlp, mlp_backward_reference,
+                                         mlp_reference)
 from vf_nerf_torch.utils.weights import (load_jax_variables,
                                          load_reference_state)
 
@@ -67,6 +68,40 @@ def test_matches_jax_pallas_kernel(skip_at, final_act, n_points):
                      skip_at=skip_at, final_act=final_act)
     np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), **TOL)
     np.testing.assert_allclose(ours.numpy(), np.asarray(xla), **TOL)
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("skip_at,final_act", [(None, "none"), (2, "tanh"),
+                                               (None, "sigmoid"),
+                                               (0, "tanh")])
+def test_backward_matches_jax_vjp(skip_at, final_act, need_dx):
+    """``mlp_backward_reference`` from the forward's saved hidden
+    activations against ``jax.vjp`` of JAX ``mlp_reference``: the gradients
+    to every kernel and bias and (when asked) to x."""
+    weights = _random_weights(skip_at)
+    x = np.random.RandomState(3).randn(97, 39).astype(np.float32)
+    jw = [(jnp.asarray(w), jnp.asarray(b)) for w, b in weights]
+    y, vjp = jax.vjp(lambda ws, xx: jfused.mlp_reference(ws, xx, skip_at,
+                                                         final_act),
+                     jw, jnp.asarray(x))
+    dy = np.random.RandomState(4).randn(*y.shape).astype(np.float32)
+    ref_w, ref_x = vjp(jnp.asarray(dy))
+    tw = _torch_weights(weights)
+    h, hidden = torch.from_numpy(x), []
+    for i, (w, b) in enumerate(tw[:-1]):
+        if i == skip_at:
+            h = torch.cat([h, torch.from_numpy(x)], 1) / 2 ** 0.5
+        h = torch.relu(h @ w + b)
+        hidden.append(h)
+    grads, dx = mlp_backward_reference(
+        tw, torch.from_numpy(x), torch.cat(hidden, 1),
+        torch.from_numpy(np.asarray(y)), torch.from_numpy(dy), skip_at,
+        final_act, need_dx=need_dx)
+    for (gw, gb), (rw, rb) in zip(grads, ref_w):
+        np.testing.assert_allclose(gw.numpy(), np.asarray(rw), **TOL)
+        np.testing.assert_allclose(gb.numpy(), np.asarray(rb), **TOL)
+    if need_dx:
+        np.testing.assert_allclose(dx.numpy(), np.asarray(ref_x), **TOL)
 
 
 def _shipped_models(seed=0):

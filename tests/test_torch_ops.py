@@ -19,13 +19,18 @@ import jax.numpy as jnp
 from vf_nerf_tpu.ops import annealing as jannealing
 from vf_nerf_tpu.ops import compositing as jcompositing
 from vf_nerf_tpu.ops import density as jdensity
+from vf_nerf_tpu.config.schema import VFLossConfig as JLossConfig
+from vf_nerf_tpu.config.schema import VFLossWeights as JLossWeights
+from vf_nerf_tpu.models import loss as jloss
 from vf_nerf_tpu.ops import embedding as jembedding
+from vf_nerf_tpu.ops import points as jpoints
 from vf_nerf_tpu.ops import rays as jrays
 from vf_nerf_tpu.ops import samplers as jsamplers
 from vf_nerf_tpu.ops import window as jwindow
-from vf_nerf_torch.config import parse_config
+from vf_nerf_torch.config import parse_config, schema
+from vf_nerf_torch.models import loss
 from vf_nerf_torch.ops import annealing, compositing, density, embedding
-from vf_nerf_torch.ops import rays, samplers, window
+from vf_nerf_torch.ops import points, rays, samplers, window
 
 CONF = str(Path(__file__).resolve().parents[1] / "confs" / "vf_nerf.conf")
 RTOL, ATOL = 1e-4, 1e-5
@@ -139,6 +144,34 @@ class TestSamplers:
         _close(ours, ref)
         assert int((torch.argmax(_t(w), -1) > 0).sum()) == 16
 
+    @pytest.mark.parametrize("perturb", [True, False])
+    @pytest.mark.parametrize("n_active", [1, 5, 12])
+    def test_range_fine_static_growth(self, n_active, perturb):
+        """``n_active`` live columns of a padded fine axis of 12: the live
+        spacing, the last live column's stratify bound and the pad depths
+        at far + 2·fine_range + 1, as JAX's traced ``n_active``."""
+        rng = np.random.RandomState(6)
+        n_rays, n_coarse, n_fine = 24, 40, 12
+        z = np.sort(rng.uniform(0.0, 4.0, (n_rays, n_coarse)), 1).astype(
+            np.float32)
+        w = rng.rand(n_rays, n_coarse).astype(np.float32)
+        w[:8, 0] = 5.0          # argmax 0: the random-extras branch
+        _, k_fine, _, t_fine, u_extra = _jax_draws(
+            jax.random.PRNGKey(13), n_rays, n_coarse, n_fine)
+        ref = jsamplers.range_fine_z_vals(
+            k_fine, jnp.asarray(z), jnp.asarray(w), n_fine, fine_range=0.3,
+            near=jnp.float32(0.0), far=jnp.float32(4.0), perturb=perturb,
+            n_active=jnp.asarray(n_active, jnp.int32))
+        ours = samplers.range_fine_z_vals(
+            _t(z), _t(w), n_fine, 0.3, 0.0, 4.0, perturb, _t(t_fine),
+            _t(u_extra), n_active=n_active)
+        _close(ours, ref)
+        # The pads sort to the tail, beyond every live depth.
+        pad = n_fine - n_active
+        if pad:
+            assert bool((ours[:, -pad:] > 4.0 + 0.6).all())
+            assert bool((ours[:, :-pad] < 4.0 + 0.6 + 1.0).all())
+
     def test_points_from_z(self):
         rng = np.random.RandomState(2)
         cam, d = rng.randn(5, 3), rng.randn(5, 3)
@@ -189,6 +222,139 @@ class TestWindow:
         _close(window.cosine_similarity(_t(normals), _t(normals[:, ::-1])),
                jwindow.cosine_similarity(jnp.asarray(normals),
                                          jnp.asarray(normals[:, ::-1])))
+
+
+    @pytest.mark.parametrize("n_valid", [3, 14, 15, 16, 20, 32])
+    @pytest.mark.parametrize("taps", ["uniform", "annealed"])
+    def test_window_cosine_n_valid(self, n_valid, taps):
+        """The live count at the window's edges: with 11 taps (start 7) and
+        32 samples, n_valid ≤ 15 leaves no live interior, 16 one position,
+        32 the whole interior (nothing masked)."""
+        rng = np.random.RandomState(n_valid)
+        normals = rng.randn(5, 32, 3).astype(np.float32)
+        w = (np.full(11, 0.09, np.float32) if taps == "uniform" else
+             np.asarray([0.01, -0.02, 0.05, 0.1, 0.15, 0.4, 0.12, 0.08, 0.04,
+                         0.02, 0.01], np.float32))
+        ref = jwindow.window_cosine_similarity(
+            jnp.asarray(normals[:, :-1]), jnp.asarray(normals[:, 1:]),
+            jnp.asarray(w), n_valid=jnp.asarray(n_valid, jnp.int32))
+        ours = window.window_cosine_similarity(
+            _t(normals[:, :-1]), _t(normals[:, 1:]), _t(w), n_valid=n_valid)
+        _close(ours, ref)
+        if n_valid == 32:
+            _close(ours, window.window_cosine_similarity(
+                _t(normals[:, :-1]), _t(normals[:, 1:]), _t(w)), **EXACT)
+
+
+class TestPoints:
+    @staticmethod
+    def _jax_draw(key, n):
+        """JAX's shell draw as ``sphere_shell_sample`` takes it, stacked as
+        the port's (n, 3) [phi, cos_theta, u]."""
+        k_phi, k_cos, k_u = jax.random.split(key, 3)
+        return np.stack([
+            np.asarray(jax.random.uniform(k_phi, (n,), jnp.float32, 0.0,
+                                          2.0 * jnp.pi)),
+            np.asarray(jax.random.uniform(k_cos, (n,), jnp.float32, -1.0,
+                                          1.0)),
+            np.asarray(jax.random.uniform(k_u, (n,), jnp.float32))], 1)
+
+    @pytest.mark.parametrize("which", ["border", "center"])
+    def test_shell_and_ball_samples(self, which):
+        key = jax.random.PRNGKey(21)
+        centroid = np.asarray([0.3, -0.2, 0.1], np.float32)
+        draw = _t(self._jax_draw(key, 500))
+        if which == "border":
+            ref = jpoints.sample_border_points(key, 2.0, 3.0, 500,
+                                               jnp.asarray(centroid))
+            ours = points.sample_border_points(draw, 2.0, 3.0, _t(centroid))
+        else:
+            ref = jpoints.sample_center_points(key, jnp.asarray(centroid),
+                                               0.15, 500)
+            ours = points.sample_center_points(draw, _t(centroid), 0.15)
+        for a, b in zip(ours, ref):
+            _close(a, b)
+
+    def test_shell_draw_from_a_generator(self):
+        draw = points.shell_draw(4000, torch.Generator().manual_seed(0),
+                                 "cpu")
+        pts = points.sphere_shell_sample(draw, r_max=2.0, r_min=1.0)
+        r = torch.linalg.vector_norm(pts, dim=1)
+        assert bool((r >= 1.0 - 1e-6).all() and (r <= 2.0 + 1e-6).all())
+        assert abs(float(pts.mean(0).abs().max())) < 0.1
+
+    def test_masks_and_targets(self):
+        rng = np.random.RandomState(4)
+        pts = rng.uniform(-2, 2, (6, 30, 3)).astype(np.float32)
+        centroid = np.asarray([0.1, 0.0, -0.1], np.float32)
+        for ours, ref in (
+                (points.border_mask_and_gt(_t(pts), 4.0, 0.15, _t(centroid)),
+                 jpoints.border_mask_and_gt(jnp.asarray(pts), 4.0, 0.15,
+                                            jnp.asarray(centroid))),
+                (points.center_mask_and_gt(_t(pts), _t(centroid), 0.9),
+                 jpoints.center_mask_and_gt(jnp.asarray(pts),
+                                            jnp.asarray(centroid), 0.9))):
+            np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref[0]))
+            assert 0 < int(ours[0].sum()) < ours[0].numel()
+            _close(ours[1], ref[1])
+
+
+class TestLoss:
+    WEIGHTS = dict(rgb=2.0, depth=0.5, unit_norm=0.1, supervision=1.0,
+                   norm_smaller_than_one=0.1, directional_derivatives=0.3)
+
+    @pytest.mark.parametrize("epoch", [0, 11000])
+    @pytest.mark.parametrize("sample_mask", [False, True])
+    @pytest.mark.parametrize("mask_invalid_depth", [False, True])
+    def test_vf_loss(self, epoch, sample_mask, mask_invalid_depth):
+        rng = np.random.RandomState(epoch + 2 * sample_mask +
+                                    4 * mask_invalid_depth)
+        r, n = 12, 12 * 10
+        preds = {"rgb": rng.rand(r, 3), "depth": rng.uniform(0, 3, (r, 1)),
+                 "normals": rng.randn(n, 3) * 0.8,
+                 "dir_derivative_norms": rng.rand(n)}
+        gts = {"rgb": rng.rand(r, 3), "depth": rng.uniform(0, 3, (r, 1))}
+        gts["depth"][::4] = 0.0          # sensor holes
+        if sample_mask:
+            preds["sample_mask"] = (rng.rand(n) < 0.7).astype(np.float32)
+        terms = [(rng.randn(n, 3), rng.randn(n, 3), rng.rand(n) < 0.3),
+                 (rng.randn(40, 3), rng.randn(40, 3),
+                  (np.arange(40) < 25).astype(np.float32)),
+                 (rng.randn(7, 3), rng.randn(7, 3), None)]
+        config = dict(norm_smaller_than_one_start=11000,
+                      depth_loss_clamp=0.5, directional_derivatives_start=100,
+                      mask_invalid_depth=mask_invalid_depth)
+
+        def jx(a):
+            return None if a is None else jnp.asarray(np.asarray(
+                a, np.float32 if np.asarray(a).dtype != bool else bool))
+
+        def tx(a):
+            if a is None:
+                return None
+            a = np.asarray(a)
+            return torch.from_numpy(a if a.dtype == bool
+                                    else a.astype(np.float32))
+
+        ref_total, ref = jloss.vf_loss(
+            {k: jx(v) for k, v in preds.items()},
+            {k: jx(v) for k, v in gts.items()},
+            [tuple(jx(a) for a in t) for t in terms],
+            JLossWeights(**self.WEIGHTS), JLossConfig(**config),
+            jnp.asarray(epoch))
+        total, ours = loss.vf_loss(
+            {k: tx(v) for k, v in preds.items()},
+            {k: tx(v) for k, v in gts.items()},
+            [tuple(tx(a) for a in t) for t in terms],
+            schema.VFLossWeights(**self.WEIGHTS),
+            schema.VFLossConfig(**config), epoch)
+        _close(total, ref_total, rtol=1e-6, atol=1e-7)
+        for k, v in ours.items():
+            _close(v, ref[k], rtol=1e-6, atol=1e-7)
+        for t in terms:
+            for a, b in zip(loss.masked_sq_err(*(tx(x) for x in t)),
+                            jloss.masked_sq_err(*(jx(x) for x in t))):
+                _close(a, b, rtol=1e-6, atol=1e-7)
 
 
 class TestCompositing:

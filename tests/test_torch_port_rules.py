@@ -91,6 +91,9 @@ def test_default_device_is_cuda_and_never_the_cpu():
     dict(rendering="nerf"), dict(train=True), dict(reuse_coarse=True),
     dict(compute_dir_derivatives=True), "n_fine_active"])
 def test_unported_paths_raise(change):
+    """Each unported option raises; static fine growth is ported, and with
+    train-mode BatchNorm (which the JAX package refuses with it too) it
+    raises."""
     cfg = parse_config(scene="s", config_path=CONF).vf_nerf_config
     cfg.vf_net_config.dimensions = [48, 48]
     cfg.vf_net_config.skip_connection_in = [1]
@@ -100,6 +103,7 @@ def test_unported_paths_raise(change):
     kw = {}
     if change == "n_fine_active":
         kw["n_fine_active"] = 2
+        statics = dataclasses.replace(statics, train=True)
     else:
         statics = dataclasses.replace(statics, **change)
     eye = torch.eye(4).expand(2, 4, 4)
@@ -127,15 +131,16 @@ def test_train_mode_batch_norm_raises():
         mods.vf(torch.zeros(4, 3))
 
 
-def _fake_cuda_args(wrapper):
+def _fake_cuda_args(wrapper, grad=False, mode=None):
     """Arguments for ``wrapper`` as fake CUDA tensors: they carry a CUDA
     device, shape and dtype but no storage, so they build on a machine
-    without a card."""
+    without a card. ``grad``: they take a gradient (the training path);
+    ``mode``: an active fake-tensor mode to build them in."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    with FakeTensorMode():
-        def t(*shape):
-            return torch.empty(shape, device="cuda")
+    with mode or FakeTensorMode():
+        def t(*shape, grad=grad):
+            return torch.empty(shape, device="cuda", requires_grad=grad)
         if wrapper == "fused_mlp":
             return (fused_mlp.fused_mlp,
                     ([(t(39, 16), t(16)), (t(16, 3), t(3))], t(8, 39)), {})
@@ -144,7 +149,8 @@ def _fake_cuda_args(wrapper):
                   mean_bounds=(0.6, 1.0), cutoff=-0.5, dir_to_normal_th=-2.0,
                   normalize=True)
         return (ray_march.fused_ray_march,
-                (t(4, 20, 3), t(4, 3), t(4, 20), t(4, 20, 3), params, t(11)),
+                (t(4, 20, 3), t(4, 3, grad=False), t(4, 20, grad=False),
+                 t(4, 20, 3), params, t(11, grad=False)),
                 kw)
 
 
@@ -159,6 +165,7 @@ def test_cuda_tensors_never_take_the_plain_version(wrapper, monkeypatch,
 
     monkeypatch.setattr(fused_mlp, "mlp_reference", fell_back)
     monkeypatch.setattr(ray_march, "ray_march_reference", fell_back)
+    monkeypatch.setattr(ray_march, "ray_march_backward_reference", fell_back)
     monkeypatch.setattr(shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
@@ -170,3 +177,43 @@ def test_cuda_tensors_never_take_the_plain_version(wrapper, monkeypatch,
     finally:
         kernels.load_library.cache_clear()
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("wrapper", ["fused_mlp", "fused_ray_march"])
+def test_cuda_tensors_with_a_gradient_take_the_autograd_functions(
+        wrapper, monkeypatch):
+    """With grad mode on and an input that takes a gradient, a CUDA call
+    goes to ``FusedMLP`` / ``FusedRayMarch`` (whose forward and backward
+    launch the kernels), never to the plain version. Only the routing is
+    checked here: a CPU-only PyTorch cannot run autograd on CUDA tensors,
+    so the Functions' ``apply`` is replaced by a marker."""
+    class Routed(Exception):
+        pass
+
+    def routed(*args, **kwargs):
+        raise Routed()
+
+    def fell_back(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(fused_mlp, "mlp_reference", fell_back)
+    monkeypatch.setattr(ray_march, "ray_march_reference", fell_back)
+    monkeypatch.setattr(fused_mlp.FusedMLP, "apply", routed)
+    monkeypatch.setattr(ray_march.FusedRayMarch, "apply", routed)
+    monkeypatch.setattr(ray_march, "march_scalars",
+                        lambda *a, **k: torch.zeros(5))
+    monkeypatch.setattr(ray_march, "load_library", lambda: _FakeLib())
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fn, args, kw = _fake_cuda_args(wrapper, grad=True, mode=mode)
+        with pytest.raises(Routed):
+            fn(*args, **kw)
+
+
+class _FakeLib:
+    """Answers the march wrapper's size queries."""
+
+    class lib:
+        vfn_ray_march_max_samples = staticmethod(lambda: 1024)
+        vfn_ray_march_max_taps = staticmethod(lambda: 64)

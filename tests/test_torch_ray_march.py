@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vf_nerf_tpu.ops import ray_march as jmarch
@@ -163,3 +164,99 @@ def test_wrapper_refuses_other_devices_and_bad_shapes():
                         rgb.to("meta"), p, taps, **kw)
     with pytest.raises(ValueError, match="shapes"):
         fused_ray_march(normals[:, :-1], dirs, z, rgb, p, taps, **kw)
+
+
+def _jax_chain(normals, dirs, z, rgb, params, taps, th, normalize, white,
+               n_valid, beta_bounds=(1e-4, 1e9)):
+    """The JAX package's plain fine-pass chain with ``n_valid``:
+    ``get_density`` (window with the live interior, σ zero from
+    n_valid - 1 on) → VolSDF weights → composite."""
+    from vf_nerf_tpu.models import renderer as jrenderer
+    from vf_nerf_tpu.ops import compositing as jcompositing
+    statics = jrenderer.RenderStatics(
+        n_coarse=0, n_fine=0, n_window=len(taps), perturb=False,
+        rendering="volsdf", normalize_rendering=normalize,
+        dir_to_normal_th=th, cutoff=-0.5, beta_bounds=beta_bounds,
+        scale_min=1.0, mean_bounds=(0.6, 1.0), anneal_mode="anneal_fine",
+        compute_dir_derivatives=False, numerical_jacobian=False,
+        white_background=white, train=False)
+    dirs_rep = jnp.repeat(dirs[:, None, :], z.shape[1], axis=1)
+    sigma = jrenderer.get_density(normals, dirs_rep, params, taps, statics,
+                                  fine=True, n_valid=n_valid)
+    weights = jcompositing.volsdf_volume_rendering(z, sigma, normalize)
+    rgb_map, depth = jcompositing.composite_rgb_depth(weights, rgb, z, white)
+    return rgb_map, depth, weights
+
+
+@pytest.mark.parametrize("n_samples,n_valid,th,white,normalize", [
+    (32, 20, -0.2, False, True),
+    (32, 32, -2.0, True, True),
+    (32, 15, -0.2, False, False),
+    (200, 130, -0.2, True, True),
+    (26, 3, -2.0, False, True),
+])
+def test_n_valid_matches_jax_get_density(n_samples, n_valid, th, white,
+                                         normalize):
+    """The plain march with the live-sample mask against the JAX package's
+    ``get_density`` with ``n_valid`` and its compositing."""
+    normals, dirs, z, rgb = _inputs(40, n_samples, seed=n_samples + n_valid)
+    params = (0.5, 100.0, 0.7)
+    kw = dict(normalize=normalize, white_background=white, **_bounds(th))
+    ours = fused_ray_march(
+        *(torch.from_numpy(a) for a in (normals, dirs, z, rgb)),
+        DensityParams(*(torch.tensor(v) for v in params)),
+        torch.tensor(ANNEALED), n_valid=n_valid, **kw)
+    ref = _jax_chain(*(jnp.asarray(a) for a in (normals, dirs, z, rgb)),
+                     JParams(*(jnp.float32(v) for v in params)),
+                     jnp.asarray(ANNEALED, jnp.float32), th, normalize,
+                     white, jnp.asarray(n_valid, jnp.int32))
+    for a, b, name in zip(ours, ref, ("rgb", "depth", "weights")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+    if n_valid < n_samples:
+        assert float(ours[2][:, n_valid:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n_valid,white,params,beta_bounds", [
+    (20, False, (0.5, 100.0, 0.7), (1e-4, 1e9)),
+    (32, True, (0.5, 100.0, 0.7), (1e-4, 1e9)),
+    (26, True, (0.2, -40.0, 1.3), (0.3, 1e9)),    # beta and mean clamped
+])
+def test_gradients_match_jax_grad(n_valid, white, params, beta_bounds):
+    """Autograd through the plain march (the CUDA backward kernel's oracle)
+    against ``jax.grad`` of the JAX chain, to the normals, the rgb samples
+    and the raw density parameters, with annealed taps: max|Δ| ≤
+    1e-4·max|g| + 1e-7 per input."""
+    normals, dirs, z, rgb = _inputs(24, 32, seed=n_valid)
+    rng = np.random.RandomState(n_valid + 1)
+    a_rgb = rng.randn(24, 3).astype(np.float32)
+    a_depth = rng.randn(24).astype(np.float32)
+
+    def jax_loss(n, c, p):
+        rgb_map, depth, _ = _jax_chain(
+            n, jnp.asarray(dirs), jnp.asarray(z), c, p,
+            jnp.asarray(ANNEALED, jnp.float32), -0.2, True, white,
+            jnp.asarray(n_valid, jnp.int32), beta_bounds)
+        return jnp.sum(rgb_map * a_rgb) + jnp.sum(depth * a_depth)
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(normals), jnp.asarray(rgb),
+        JParams(*(jnp.float32(v) for v in params)))
+    n_t = torch.from_numpy(normals).requires_grad_(True)
+    c_t = torch.from_numpy(rgb).requires_grad_(True)
+    p_t = DensityParams(*(torch.tensor(v, requires_grad=True)
+                          for v in params))
+    out = fused_ray_march(n_t, torch.from_numpy(dirs), torch.from_numpy(z),
+                          c_t, p_t, torch.tensor(ANNEALED), normalize=True,
+                          white_background=white, n_valid=n_valid,
+                          **_bounds(-0.2, beta_bounds))
+    total = torch.sum(out[0] * torch.from_numpy(a_rgb)) + \
+        torch.sum(out[1] * torch.from_numpy(a_depth))
+    got = torch.autograd.grad(total, [n_t, c_t, *p_t])
+    refs = [np.asarray(ref[0]), np.asarray(ref[1])] + \
+        [np.asarray(getattr(ref[2], k)) for k in ("beta", "scale", "mean")]
+    for g, r, name in zip(got, refs, ("normals", "rgb", "beta", "scale",
+                                      "mean")):
+        err = float(np.abs(g.numpy() - r).max())
+        assert err <= 1e-4 * float(np.abs(r).max()) + 1e-7, (name, err)
+    assert float(np.abs(refs[0]).max()) > 1e-3   # the density carried some

@@ -59,6 +59,14 @@
 //   * The input tile lands by cp.async; the skip's x columns are loaded with
 //     16 loads in flight per lane. Index loops run warps over rows and lanes
 //     over columns, so they need no integer division.
+//   * Activation-save mode (training): with `acts` set, each hidden layer's
+//     post-ReLU output is copied from the shared activation tile to `acts`
+//     (points x sum of hidden widths, f32, layer after layer), with
+//     coalesced row stores, after the barrier that completes the layer's
+//     write-back and before the next layer overwrites the tile. The copy
+//     runs from shared memory, never from the accumulator registers, so the
+//     kernel's register allocation is the same with and without it; with
+//     `acts` null (eval) it is skipped whole.
 // Clusters with a TMA multicast of each weight tile are later work.
 
 #include <cuda_runtime.h>
@@ -90,6 +98,8 @@ struct MlpDesc {
   int n_layers;
   int skip_at;    // -1: no skip
   int final_act;  // 0 none, 1 tanh, 2 sigmoid
+  float* acts;    // null, or (points, acts_ld): hidden outputs, saved
+  int acts_ld;    // sum of the hidden widths
 };
 
 __device__ __forceinline__ int round_up(int a, int b) {
@@ -489,6 +499,18 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
             float* orow = out + (size_t)(p_base + p) * N;
             for (int n = lane; n < nc; n += 32) orow[n] = act[p * kActLd + n];
           }
+        } else if (d.acts != nullptr) {
+          // Save mode: this hidden layer's output rows, after the earlier
+          // hidden layers' columns.
+          int col = 0;
+          for (int l = 0; l < layer; ++l) col += d.n[l];
+          for (int p = warp; p < kTileP && p_base + p < n_points; p += 8) {
+            float* arow = d.acts + (size_t)(p_base + p) * d.acts_ld + col;
+            for (int n = lane; n < N; n += 32) arow[n] = act[p * kActLd + n];
+          }
+          // The skip layer scales the tile in place before its first
+          // barrier, so every copy must be done first.
+          __syncthreads();
         }
       } else {
         // An earlier chunk of the last layer: straight from registers.
@@ -527,12 +549,14 @@ int vfn_fused_mlp_max_width() { return kMaxWidth; }
 int vfn_fused_mlp_max_hidden() { return kChunkN; }
 
 // Launch on `stream`. `weights` and `biases` are HOST arrays of device
-// pointers, `k_dims` / `n_dims` host arrays of the layer widths. Returns the
-// CUDA error code of the configuration and the launch (0 on success).
+// pointers, `k_dims` / `n_dims` host arrays of the layer widths. `acts`:
+// null, or a device buffer of n_points x (sum of the hidden widths) f32 that
+// receives every hidden layer's output (save mode). Returns the CUDA error
+// code of the configuration and the launch (0 on success).
 int vfn_fused_mlp(const float* x, float* out, int n_points, int in_dim,
                   const float* const* weights, const float* const* biases,
                   const int* k_dims, const int* n_dims, int n_layers,
-                  int skip_at, int final_act, void* stream) {
+                  int skip_at, int final_act, float* acts, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || in_dim > kMaxWidth) {
     return (int)cudaErrorInvalidValue;
   }
@@ -549,6 +573,9 @@ int vfn_fused_mlp(const float* x, float* out, int n_points, int in_dim,
   d.n_layers = n_layers;
   d.skip_at = skip_at;
   d.final_act = final_act;
+  d.acts = acts;
+  d.acts_ld = 0;
+  for (int i = 0; i < n_layers - 1; ++i) d.acts_ld += n_dims[i];
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);

@@ -66,7 +66,7 @@ class KernelLibrary:
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
         lib.vfn_fused_mlp.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                                      _I, _P]
+                                      _I, _P, _P]
         lib.vfn_fused_mlp.restype = _I
         lib.vfn_fused_mlp_max_width.argtypes = []
         lib.vfn_fused_mlp_max_width.restype = _I
@@ -74,8 +74,12 @@ class KernelLibrary:
         lib.vfn_fused_mlp_max_hidden.restype = _I
         lib.vfn_ray_march.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _F, _F, _F, _F, _F, _F, _F,
-                                      _P, _P, _P, _I, _I, _I, _I, _P]
+                                      _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.vfn_ray_march.restype = _I
+        lib.vfn_ray_march_backward.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.vfn_ray_march_backward.restype = _I
         lib.vfn_ray_march_max_samples.argtypes = []
         lib.vfn_ray_march_max_samples.restype = _I
         lib.vfn_ray_march_max_taps.argtypes = []

@@ -17,9 +17,9 @@ exactly the reference state-dict layout (``layers.{i}.0.weight``,
 files load as they are. Init is torch's default Linear init, U(±1/√fan_in),
 or Xavier with a constant bias when ``xavier_init``.
 
-The slice is the eval render: BatchNorm runs on its running statistics, and
-weight norm, dropout in training and train-mode BatchNorm raise
-``NotImplementedError``.
+BatchNorm runs on its running statistics (eval render, and training with
+BatchNorm frozen as the shipped conf trains); weight norm, dropout in
+training and train-mode BatchNorm raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,16 +69,18 @@ class _MLP(nn.Module):
                 "train-mode BatchNorm is not ported yet; call .eval()")
         return self.layers[i](x)
 
-    @torch.no_grad()
-    def folded_weights(self) -> Weights:
-        """[(kernel (in, out), bias)] with eval-mode BatchNorm folded in,
-        detached from autograd (the eval render takes no gradients)."""
-        out = []
-        for layer in self.layers:
-            pair = fold_dense_bn(*layer) if isinstance(layer, nn.Sequential) \
-                else fold_dense_bn(layer)
-            out.append((pair[0].detach(), pair[1].detach()))
-        return out
+    def folded_weights(self, detach: bool = True) -> Weights:
+        """[(kernel (in, out), bias)] with eval-mode BatchNorm folded in.
+        ``detach=False`` keeps the fold on the autograd graph, so that the
+        kernels' weight gradients reach the Linear weights and the
+        BatchNorm scale and bias (training with frozen BatchNorm). Detached,
+        no tensor takes a gradient (the last layer's bias is otherwise the
+        Parameter itself), so the fused MLP launches without saving."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
+            pairs = [fold_dense_bn(*layer) if isinstance(layer, nn.Sequential)
+                     else fold_dense_bn(layer) for layer in self.layers]
+        return [(w.detach(), b.detach()) for w, b in pairs] if detach \
+            else pairs
 
 
 class VectorFieldMLP(_MLP):
@@ -151,8 +153,12 @@ class RenderingMLP(_MLP):
 
     def inputs(self, points, normals, view_dirs,
                feature_vectors: Optional[torch.Tensor]) -> torch.Tensor:
-        """The concatenated input ``[xyz, PE(view), normals, features]``."""
+        """The concatenated input ``[xyz, PE(view), normals, features]``;
+        with ``detach_normals`` the normals take no gradient from the
+        colour (reference ``rendering_network.py:76-77``)."""
         cfg = self.config
+        if cfg.detach_normals:
+            normals = normals.detach()
         if cfg.embedder_multires > 0:
             view_dirs = positional_encoding(view_dirs, cfg.embedder_multires)
         parts = [points]

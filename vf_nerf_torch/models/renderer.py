@@ -1,5 +1,5 @@
-"""The eval render of a batch of rays (port of the BN-folded ``fast_eval``
-path of ``render_rays`` in ``vf_nerf_tpu/models/renderer.py``; reference
+"""The render of a batch of rays with BatchNorm folded (port of
+``render_rays`` in ``vf_nerf_tpu/models/renderer.py``; reference
 ``VectorFieldNerf.render``, ``models/nerf/vector_field_nerf.py:216-338``).
 
 ray gen → stratified coarse depths → VF net (fused MLP) → fused ray march for
@@ -7,13 +7,27 @@ the coarse weights → argmax-range fine depths → VF net on all samples → co
 net (fused MLP) → fused ray march for the composite. On CUDA tensors the two
 fused ops launch their kernels: 3 MLP launches and 2 march launches per call.
 
+The same function is the eval render and the training step's forward. With
+``grad=True`` the fine pass builds the autograd graph through the folded
+weights to the Linear and BatchNorm parameters and the density scalars
+(frozen BatchNorm, as the shipped conf trains: its directional-derivative
+weight is 0); the coarse pass only steers the fine sampler and runs without
+gradients, as the JAX package stops them. This port honours
+``rendering.detach_normals`` on that path; the JAX package's folded path
+does not (``ROADMAP.md`` §C), its unfolded path does.
+
+Static fine growth: ``n_fine_active`` live fine samples out of the padded
+``statics.n_fine``; the pad depths sort to the ray's tail, the march masks
+them (``n_valid``), and ``sample_mask`` marks the live samples for the
+loss.
+
 Reference quirks kept: the density uses a uniform ``1/W`` window unless
 ``anneal_fine`` on the fine pass; back-facing samples are suppressed; the
 last sample's σ is 0; the effective density cutoff is −0.5, not the conf's.
 
-Out of this slice, raising ``NotImplementedError``: train-mode BatchNorm,
-``rendering="nerf"``, ``reuse_coarse``, static fine growth
-(``n_fine_active``), directional derivatives, bf16 compute, weight norm.
+Not ported, raising ``NotImplementedError``: train-mode BatchNorm,
+``rendering="nerf"``, ``reuse_coarse``, directional derivatives, bf16
+compute, weight norm.
 """
 
 from __future__ import annotations
@@ -99,9 +113,12 @@ class VFNerfModules(nn.Module):
                                    generator=generator)
         self.density = LaplaceDensity(cfg.density_config.params_init)
 
-    def folded_weights(self) -> Tuple[Weights, Weights]:
-        """Eval-mode BatchNorm folded into both nets' dense weights."""
-        return self.vf.folded_weights(), self.render.folded_weights()
+    def folded_weights(self, detach: bool = True
+                       ) -> Tuple[Weights, Weights]:
+        """Eval-mode BatchNorm folded into both nets' dense weights
+        (``detach=False``: on the autograd graph)."""
+        return (self.vf.folded_weights(detach),
+                self.render.folded_weights(detach))
 
     def vf_apply_folded(self, vf_weights: Weights,
                         points: torch.Tensor) -> torch.Tensor:
@@ -144,7 +161,6 @@ def draw_uniforms(statics: RenderStatics, n_rays: int,
     return {"t_coarse": t_coarse, "t_fine": t_fine, "u_extra": u_extra}
 
 
-@torch.no_grad()
 def render_rays(modules: VFNerfModules,
                 uv: torch.Tensor,
                 pose: torch.Tensor,
@@ -156,7 +172,10 @@ def render_rays(modules: VFNerfModules,
                 t_coarse: Optional[torch.Tensor] = None,
                 t_fine: Optional[torch.Tensor] = None,
                 u_extra: Optional[torch.Tensor] = None,
-                n_fine_active=None) -> Dict[str, torch.Tensor]:
+                n_fine_active: Optional[int] = None,
+                grad: bool = False,
+                folded: Optional[Tuple[Weights, Weights]] = None
+                ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays on the device of ``uv``.
 
     :param uv: (R, 2) pixels; ``pose`` (R, 4, 4) or (R, 7); ``intrinsics``
@@ -165,15 +184,33 @@ def render_rays(modules: VFNerfModules,
         ``draw_uniforms``); when one that the statics need is None, all
         three are drawn from ``generator`` in ``draw_uniforms``' order and
         the missing ones taken from that draw.
+    :param n_fine_active: static fine growth: the live fine count (1 ..
+        ``statics.n_fine``, a Python int) of the padded fine axis.
+    :param grad: build the autograd graph of the fine pass (training);
+        off, the call runs under ``torch.no_grad()``.
+    :param folded: the nets' folded weights (``modules.folded_weights``),
+        when the caller has them already; else they are folded here.
     :return: dict with rgb (R, 3), depth (R, 1), normals (R, S, 3), points
         (R, S, 3), z_vals (R, S), weights (R, S), sample_colors (R, S, 3),
-        and ``argmax_coarse`` (R,), the coarse-weight argmax that chose each
-        ray's fine branch.
+        ``argmax_coarse`` (R,), the coarse-weight argmax that chose each
+        ray's fine branch, and with ``n_fine_active`` ``sample_mask`` (R, S),
+        1.0 on live samples.
     """
     _check_statics(statics)
     if n_fine_active is not None:
-        raise NotImplementedError("static fine growth (n_fine_active) is not "
-                                  "ported yet")
+        n_fine_active = int(n_fine_active)
+        if not 1 <= n_fine_active <= statics.n_fine:
+            raise ValueError(f"n_fine_active must be in 1..{statics.n_fine} "
+                             f"(the padded fine count); got {n_fine_active}")
+    with torch.set_grad_enabled(grad):
+        return _render(modules, uv, pose, intrinsics, near, far,
+                       window_weights, statics, generator, t_coarse, t_fine,
+                       u_extra, n_fine_active, folded)
+
+
+def _render(modules, uv, pose, intrinsics, near, far, window_weights,
+            statics, generator, t_coarse, t_fine, u_extra, n_fine_active,
+            folded):
     device = uv.device
     n_rays = uv.shape[0]
     has_fine = statics.n_fine > 0
@@ -190,7 +227,8 @@ def render_rays(modules: VFNerfModules,
         u_extra = drawn["u_extra"] if u_extra is None else u_extra
 
     density_params = modules.density.params()
-    vf_w, rn_w = modules.folded_weights()
+    vf_w, rn_w = folded if folded is not None else \
+        modules.folded_weights(detach=not torch.is_grad_enabled())
     directions, ray_dirs, cam_loc = get_ray_directions_and_cam_location(
         uv, pose, intrinsics)
     ray_dirs = ray_dirs.contiguous()
@@ -206,25 +244,26 @@ def render_rays(modules: VFNerfModules,
                  normalize=statics.normalize_rendering,
                  white_background=statics.white_background)
 
-    # ---- coarse pass: steers the fine sampler only -------------------------
-    z_coarse = samplers.uniform_z_vals(n_rays, statics.n_coarse, near, far,
-                                       perturb=statics.perturb, t=t_coarse,
-                                       device=device).contiguous()
-    pts_coarse = samplers.points_from_z(cam_loc, directions, z_coarse)
-    normals_coarse = modules.vf_apply_folded(
-        vf_w, pts_coarse.reshape(-1, 3))[:, :3].reshape(
-            n_rays, statics.n_coarse, 3).contiguous()
-    _, _, weights_coarse = fused_ray_march(
-        normals_coarse, ray_dirs, z_coarse, None, density_params, uniform,
-        **march)
-    argmax_coarse = torch.argmax(weights_coarse, dim=-1)
+    # ---- coarse pass: steers the fine sampler only, no gradients ----------
+    with torch.no_grad():
+        z_coarse = samplers.uniform_z_vals(
+            n_rays, statics.n_coarse, near, far, perturb=statics.perturb,
+            t=t_coarse, device=device).contiguous()
+        pts_coarse = samplers.points_from_z(cam_loc, directions, z_coarse)
+        normals_coarse = modules.vf_apply_folded(
+            vf_w, pts_coarse.reshape(-1, 3))[:, :3].reshape(
+                n_rays, statics.n_coarse, 3).contiguous()
+        _, _, weights_coarse = fused_ray_march(
+            normals_coarse, ray_dirs, z_coarse, None, density_params,
+            uniform, **march)
+        argmax_coarse = torch.argmax(weights_coarse, dim=-1)
 
     # ---- fine pass ---------------------------------------------------------
     if statics.n_fine > 0:
         z_vals = samplers.range_fine_z_vals(
             z_coarse, weights_coarse, statics.n_fine,
             modules.cfg.ray_sampler_config.fine_range, near, far,
-            statics.perturb, t_fine, u_extra)
+            statics.perturb, t_fine, u_extra, n_active=n_fine_active)
     else:
         z_vals = z_coarse
     z_vals = z_vals.contiguous()
@@ -239,10 +278,12 @@ def render_rays(modules: VFNerfModules,
         rn_w, points_flat, normals_flat, dirs_flat,
         vf_out[:, 3:3 + feat_dim]).reshape(n_rays, n_samples, 3)
     normals = normals_flat.reshape(n_rays, n_samples, 3).contiguous()
+    n_valid = None if n_fine_active is None \
+        else statics.n_coarse + n_fine_active
     rgb, depth, weights = fused_ray_march(
         normals, ray_dirs, z_vals, rgb_samples, density_params, fine_taps,
-        **march)
-    return {
+        n_valid=n_valid, **march)
+    out = {
         "rgb": rgb,
         "depth": depth[:, None],
         "normals": normals,
@@ -252,3 +293,8 @@ def render_rays(modules: VFNerfModules,
         "sample_colors": rgb_samples,
         "argmax_coarse": argmax_coarse,
     }
+    if n_valid is not None:
+        live = torch.arange(n_samples, device=device) < n_valid
+        out["sample_mask"] = live[None, :].to(torch.float32).expand(
+            n_rays, n_samples)
+    return out

@@ -1,5 +1,5 @@
-"""Fused MLP forward: BatchNorm folding, the plain version, and the wrapper
-of the CUDA kernel ``csrc/fused_mlp.cu`` (port of
+"""Fused MLP: BatchNorm folding, the plain forward and backward, and the
+wrapper of the CUDA kernel ``csrc/fused_mlp.cu`` (port of
 ``vf_nerf_tpu/ops/fused_mlp.py``).
 
 In eval mode BatchNorm is a fixed affine map that folds into the preceding
@@ -7,6 +7,12 @@ Linear (``fold_dense_bn``), so the render path runs plain dense layers:
 ``h = relu(h @ W + b)``, the skip layer taking ``concat([h, x]) / sqrt(2)``,
 the last layer without ReLU and ending in tanh or sigmoid. Weights keep the
 JAX package's (in, out) layout at this module's functions.
+
+Training (frozen BatchNorm, as the shipped conf trains) runs the same
+kernel in its activation-save mode and ``FusedMLP``'s backward
+(``mlp_backward_reference``) on cuBLAS; autograd carries the weight
+gradients through ``fold_dense_bn`` to the Linear and BatchNorm
+parameters.
 """
 
 from __future__ import annotations
@@ -57,6 +63,58 @@ def mlp_reference(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
     return h
 
 
+def mlp_backward_reference(weights: Weights, x: torch.Tensor,
+                           acts: torch.Tensor, y: torch.Tensor,
+                           dy: torch.Tensor, skip_at: Optional[int],
+                           final_act: str, need_dx: bool = True):
+    """The backward of ``mlp_reference`` from the forward's saved values.
+
+    :param acts: (N, sum of hidden widths) every hidden layer's post-ReLU
+        output, layer after layer (what the kernel's save mode writes).
+    :param y: (N, out) the forward's output; ``dy`` its gradient.
+    :return: ([(dW (in, out), db (out,))] per layer, dx (N, in) or None).
+
+    The chain: the final activation's derivative (tanh' = 1 − y²,
+    sigmoid' = y(1 − y)), then per layer from the last,
+    ``dW_i = H_{i−1}ᵀ dZ_i``, ``db_i = Σ dZ_i``, ``dH_{i−1} = dZ_i W_iᵀ``
+    and ``dZ_{i−1} = dH_{i−1} · [H_{i−1} > 0]``; the skip layer's input is
+    ``concat([h, x]) / √2``, so its incoming gradient splits ÷ √2 into h and
+    x. The products are ``torch.matmul``: cuBLAS on the card, in f32 while
+    ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's
+    default, which the port's scripts set).
+    """
+    n = len(weights)
+    widths = [w.shape[1] for w, _ in weights[:-1]]
+    hidden = torch.split(acts, widths, dim=1) if widths else ()
+    if final_act == "tanh":
+        dz = dy * (1.0 - y * y)
+    elif final_act == "sigmoid":
+        dz = dy * (y * (1.0 - y))
+    else:
+        dz = dy
+    rsqrt2 = 1.0 / math.sqrt(2.0)
+    grads = [None] * n
+    dx = None
+    for i in range(n - 1, -1, -1):
+        w = weights[i][0]
+        h = x if i == 0 else hidden[i - 1]
+        inp = torch.cat([h, x], dim=1) / math.sqrt(2.0) \
+            if skip_at is not None and i == skip_at else h
+        grads[i] = (inp.t() @ dz, dz.sum(0))
+        if i == 0 and not need_dx:
+            break
+        dh = dz @ w.t()
+        if skip_at is not None and i == skip_at:
+            dx_skip = dh[:, h.shape[1]:] * rsqrt2
+            dx = dx_skip if dx is None else dx + dx_skip
+            dh = dh[:, :h.shape[1]] * rsqrt2
+        if i == 0:
+            dx = dh if dx is None else dx + dh
+        else:
+            dz = dh * (hidden[i - 1] > 0)
+    return grads, dx
+
+
 def _check_layers(weights: Weights, in_dim: int,
                   skip_at: Optional[int]) -> None:
     width = in_dim
@@ -79,10 +137,14 @@ def fused_mlp(weights: Weights, x: torch.Tensor,
     :param skip_at: layer that takes ``concat([h, x]) / sqrt(2)``.
     :return: (N, out_dim).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. The kernel computes in 3xTF32 on the tensor cores (of f32
-    grade) and takes layer inputs up to ``vfn_fused_mlp_max_width()`` (296)
-    and hidden layers up to ``vfn_fused_mlp_max_hidden()`` (256) wide.
+    A CPU tensor takes the plain version (under autograd when a gradient is
+    asked for); a CUDA tensor launches the kernel or raises. The kernel
+    computes in 3xTF32 on the tensor cores (of f32 grade) and takes layer
+    inputs up to ``vfn_fused_mlp_max_width()`` (296) and hidden layers up
+    to ``vfn_fused_mlp_max_hidden()`` (256) wide. When grad mode is on and
+    x or a weight takes a gradient, the call goes through ``FusedMLP``: the
+    kernel also saves the hidden activations, and the backward runs
+    ``mlp_backward_reference`` on cuBLAS.
     """
     if final_act not in _ACTS:
         raise ValueError(f"final_act must be one of {sorted(_ACTS)}")
@@ -92,6 +154,47 @@ def fused_mlp(weights: Weights, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp takes CPU or CUDA tensors, not "
                          f"{x.device}")
+    flat = [t for wb in weights for t in wb]
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in [x] + flat):
+        return FusedMLP.apply(x, skip_at, final_act, *flat)
+    out, _ = _launch(weights, x, skip_at, final_act, save=False)
+    return out
+
+
+fused_mlp.launches = 0
+
+
+class FusedMLP(torch.autograd.Function):
+    """``fused_mlp`` with a gradient, on CUDA tensors: the forward kernel in
+    its activation-save mode, and ``mlp_backward_reference`` as the
+    backward (its products on cuBLAS in f32 with TF32 off). Inputs: x, the
+    skip layer, the final activation, then each layer's kernel and bias."""
+
+    @staticmethod
+    def forward(ctx, x, skip_at, final_act, *flat):
+        weights = list(zip(flat[0::2], flat[1::2]))
+        y, acts = _launch(weights, x, skip_at, final_act, save=True)
+        ctx.skip_at, ctx.final_act = skip_at, final_act
+        ctx.save_for_backward(x, acts, y, *flat)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, acts, y, *flat = ctx.saved_tensors
+        weights = list(zip(flat[0::2], flat[1::2]))
+        need_dx = ctx.needs_input_grad[0]
+        grads, dx = mlp_backward_reference(
+            weights, x, acts, y, dy, ctx.skip_at, ctx.final_act,
+            need_dx=need_dx)
+        return (dx if need_dx else None, None, None) + \
+            tuple(t for g in grads for t in g)
+
+
+def _launch(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
+            final_act: str, save: bool):
+    """One kernel launch on CUDA tensors: (out (N, out_dim), acts (N, sum
+    of hidden widths) when ``save``, else None)."""
     tensors = [x] + [t for wb in weights for t in wb]
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or \
@@ -111,21 +214,20 @@ def fused_mlp(weights: Weights, x: torch.Tensor,
     n_layers = len(weights)
     out = torch.empty((x.shape[0], weights[-1][0].shape[1]),
                       dtype=torch.float32, device=x.device)
+    acts = torch.empty((x.shape[0], sum(w.shape[1] for w, _ in weights[:-1])),
+                       dtype=torch.float32, device=x.device) if save else None
     if x.shape[0] == 0:
-        return out
+        return out, acts
     ptrs = _pointer_arrays(weights)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.lib.vfn_fused_mlp(
             x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], *ptrs,
             n_layers, -1 if skip_at is None else skip_at, _ACTS[final_act],
-            stream)
+            None if acts is None else acts.data_ptr(), stream)
     lib.check(code, "fused_mlp launch")
     fused_mlp.launches += 1
-    return out
-
-
-fused_mlp.launches = 0
+    return out, acts
 
 
 def _pointer_arrays(weights: Weights):

@@ -6,7 +6,12 @@ reference ``models/samplers/ray_sampler.py``).
 - ``range_fine_z_vals``: N stratified depths in ``±fine_range`` around the
   coarse-weight argmax plus N uniform-random depths over [near, far]; rays
   whose argmax is sample 0 take the random extras (``RangeFineSampler``,
-  ``:240-301``).
+  ``:240-301``). With ``n_active`` (static fine growth) the fine axis keeps
+  its padded width N and only its first ``n_active`` columns are live: the
+  window's spacing uses the live count, the last live column is stratified
+  as if the array ended there, and the pad columns sit at
+  ``far + 2·fine_range + 1``, beyond any live depth, so they sort to the
+  ray's tail.
 
 JAX's threefry streams cannot be reproduced in torch, so every uniform draw
 is an argument: ``t`` (the stratify jitter) and ``u_extra`` (the random
@@ -30,12 +35,18 @@ def points_from_z(cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
     return cam_loc[:, None, :] + z_vals[..., None] * ray_dirs[:, None, :]
 
 
-def _stratify(z_vals: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def _stratify(z_vals: torch.Tensor, t: torch.Tensor,
+              n_active: Optional[int] = None) -> torch.Tensor:
     """Jitter each sample inside its mid-point interval
-    (reference ``ray_sampler.py:132-140``); ``t`` has z's shape."""
+    (reference ``ray_sampler.py:132-140``); ``t`` has z's shape. With
+    ``n_active``, column ``n_active - 1`` takes its own depth as its upper
+    bound, as the last column of a width-``n_active`` array would."""
     mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
     lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    if n_active is not None:
+        upper = upper.clone()
+        upper[..., n_active - 1] = z_vals[..., n_active - 1]
     return lower + (upper - lower) * t
 
 
@@ -76,21 +87,30 @@ def range_fine_extra_z(coarse_z_vals: torch.Tensor,
                        n_fine: int, fine_range: float, near: Scalar,
                        far: Scalar, perturb: bool,
                        t_fine: Optional[torch.Tensor],
-                       u_extra: torch.Tensor) -> torch.Tensor:
+                       u_extra: torch.Tensor,
+                       n_active: Optional[int] = None) -> torch.Tensor:
     """The per-ray new depths (R, n_fine), unsorted: a stratified window
     around the coarse argmax where the argmax is > 0, else the random
-    extras ``u_extra * (far - near) + near``."""
+    extras ``u_extra * (far - near) + near``. ``n_active`` (1 ..
+    ``n_fine``): only the first ``n_active`` columns are live, the rest
+    are pad depths (see the module docstring)."""
     dtype = coarse_z_vals.dtype
     max_idx = torch.argmax(coarse_weights, dim=-1)           # first maximum
     max_z = torch.gather(coarse_z_vals, 1, max_idx[:, None])
-    step = 2.0 * fine_range / torch.tensor(float(n_fine - 1), dtype=dtype)
+    spaces = n_fine - 1 if n_active is None else max(n_active - 1, 1)
+    step = 2.0 * fine_range / torch.tensor(float(spaces), dtype=dtype)
     offsets = step * torch.arange(n_fine, dtype=dtype,
                                   device=coarse_z_vals.device)
     z_window = max_z - fine_range + offsets[None, :]
     if perturb:
-        z_window = _stratify(z_window, t_fine)
+        z_window = _stratify(z_window, t_fine, n_active)
     z_random = u_extra * (far - near) + near
-    return torch.where((max_idx > 0)[:, None], z_window, z_random)
+    z_extra = torch.where((max_idx > 0)[:, None], z_window, z_random)
+    if n_active is not None:
+        pad_z = _column(far, z_extra) + 2.0 * fine_range + 1.0
+        live = torch.arange(n_fine, device=z_extra.device) < n_active
+        z_extra = torch.where(live[None, :], z_extra, pad_z)
+    return z_extra
 
 
 def range_fine_z_vals(coarse_z_vals: torch.Tensor,
@@ -98,11 +118,13 @@ def range_fine_z_vals(coarse_z_vals: torch.Tensor,
                       n_fine: int, fine_range: float, near: Scalar,
                       far: Scalar, perturb: bool,
                       t_fine: Optional[torch.Tensor],
-                      u_extra: torch.Tensor) -> torch.Tensor:
+                      u_extra: torch.Tensor,
+                      n_active: Optional[int] = None) -> torch.Tensor:
     """(R, S_coarse + n_fine) sorted depths: the coarse ones plus the
-    extras of ``range_fine_extra_z``, in one sort."""
+    extras of ``range_fine_extra_z``, in one sort (with ``n_active`` the
+    pad depths take the last ``n_fine - n_active`` places)."""
     z_extra = range_fine_extra_z(coarse_z_vals, coarse_weights, n_fine,
                                  fine_range, near, far, perturb, t_fine,
-                                 u_extra)
+                                 u_extra, n_active)
     return torch.sort(torch.cat([coarse_z_vals, z_extra], dim=-1),
                       dim=-1).values

@@ -12,6 +12,8 @@ backward taps ``(n_j, n_{j-i})`` for ``i = 1 .. start-2``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _EPS = 1e-8  # torch F.cosine_similarity eps
@@ -27,9 +29,16 @@ def cosine_similarity(x: torch.Tensor, y: torch.Tensor,
 
 
 def window_cosine_similarity(x: torch.Tensor, y: torch.Tensor,
-                             weights: torch.Tensor) -> torch.Tensor:
+                             weights: torch.Tensor,
+                             n_valid: Optional[int] = None) -> torch.Tensor:
     """(R, L) windowed cosines of ``x = normals[:, :-1]`` against
-    ``y = normals[:, 1:]`` with (W,) tap ``weights``."""
+    ``y = normals[:, 1:]`` with (W,) tap ``weights``.
+
+    ``n_valid``: the number of live samples when the ray's tail is padding
+    (static fine growth). Positions from ``n_valid - 1 - start`` on keep the
+    raw cosine, as in an unpadded array of ``n_valid`` samples, so no live
+    window reads a pad sample.
+    """
     n_taps = weights.shape[0]
     start = (n_taps + 1) // 2 + 1
     middle = (n_taps - 1) // 2
@@ -50,4 +59,7 @@ def window_cosine_similarity(x: torch.Tensor, y: torch.Tensor,
                   + bwd * torch.abs(weights[middle - i]) / normalizer
     out = cs.clone()
     out[:, start:hi] = acc
+    if n_valid is not None:
+        live = torch.arange(length, device=cs.device) < n_valid - 1 - start
+        out = torch.where(live[None, :], out, cs)
     return out

@@ -5,6 +5,10 @@
   ``batch_stats.{vf,render}.layer_i.BatchNorm_0.{mean,var}`` and
   ``params.density`` with ``beta/scale/mean`` as a dict or a named tuple).
   Dense kernels transpose from (in, out) to torch's (out, in).
+- ``load_jax_train_state``: a JAX ``TrainState`` (params, batch_stats,
+  opt_state, step) into a ``VectorFieldNerf`` and its optimizer: the Adam
+  moments ``mu`` / ``nu`` leaf by leaf and the count, from the plain
+  optax chain's ``ScaleByAdamState`` or the duplicate-VF optimizer's dict.
 - ``load_reference_state``: a reference ``.pth`` blob (keys ``vf_net``,
   ``rendering_net``, ``density``; reference
   ``models/nerf/vector_field_nerf.py:196-214``). The port's modules use the
@@ -16,12 +20,13 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from vf_nerf_torch.models.nerf import param_groups
 from vf_nerf_torch.models.renderer import VFNerfModules
 
 
@@ -64,6 +69,68 @@ def load_jax_variables(model_or_modules, variables: Mapping[str, Any]) -> None:
         value = density[name] if isinstance(density, Mapping) \
             else getattr(density, name)
         _copy(getattr(modules.density, name), value)
+
+
+def jax_param_paths(modules: VFNerfModules
+                    ) -> List[Tuple[Tuple[str, ...], torch.Tensor, bool]]:
+    """Each trainable tensor with its path in the JAX params tree and
+    whether the JAX leaf is its transpose (Dense kernels are (in, out))."""
+    out = []
+    for net_name, net in (("vf", modules.vf), ("render", modules.render)):
+        for i, layer in enumerate(net.layers):
+            scope = (net_name, f"layer_{i}")
+            lin = layer[0] if isinstance(layer, nn.Sequential) else layer
+            out.append((scope + ("Dense_0", "kernel"), lin.weight, True))
+            out.append((scope + ("Dense_0", "bias"), lin.bias, False))
+            if isinstance(layer, nn.Sequential):
+                out.append((scope + ("BatchNorm_0", "scale"), layer[1].weight,
+                            False))
+                out.append((scope + ("BatchNorm_0", "bias"), layer[1].bias,
+                            False))
+    for name in ("beta", "scale", "mean"):
+        out.append((("density", name), getattr(modules.density, name),
+                    False))
+    return out
+
+
+def _leaf(tree: Any, path: Tuple[str, ...]) -> np.ndarray:
+    for key in path:
+        tree = tree[key] if isinstance(tree, Mapping) else getattr(tree, key)
+    return np.asarray(tree)
+
+
+def _adam_state(opt_state: Any):
+    """(mu, nu, count) of either JAX optimizer's state."""
+    if isinstance(opt_state, Mapping):
+        return opt_state["mu"], opt_state["nu"], opt_state["count"]
+    for part in opt_state:
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return part.mu, part.nu, part.count
+    raise ValueError("no Adam moments in the optimizer state")
+
+
+def load_jax_train_state(model, state: Any) -> None:
+    """Carry a JAX ``TrainState`` (``params``, ``batch_stats``,
+    ``opt_state``, ``step``; numpy or JAX leaves) into ``model`` (a
+    ``VectorFieldNerf``): the weights, the optimizer's moments and count.
+    Raises if the state's step and its optimizer count differ, since the
+    port keeps one count."""
+    load_jax_variables(model, {"params": state.params,
+                               "batch_stats": state.batch_stats})
+    mu, nu, count = _adam_state(state.opt_state)
+    if int(np.asarray(state.step)) != int(np.asarray(count)):
+        raise ValueError(f"step {int(np.asarray(state.step))} and optimizer "
+                         f"count {int(np.asarray(count))} differ")
+    opt = model.optimizer
+    where = {id(p): (group, i)
+             for group, params in param_groups(model.modules).items()
+             for i, p in enumerate(params)}
+    for path, param, transpose in jax_param_paths(model.modules):
+        group, i = where[id(param)]
+        for moments, dst in ((mu, opt.mu), (nu, opt.nu)):
+            value = _leaf(moments, path)
+            _copy(dst[group][i], value.T if transpose else value)
+    opt.count = int(np.asarray(count))
 
 
 def _strip_module_prefix(state: Mapping[str, Any]) -> Dict[str, Any]:
