@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive vf_nerf_torch's eval render and training step on one CUDA card and
-check their kernels.
+"""Drive vf_nerf_torch's eval render, training step, VF init, training
+runner and image evaluation on one CUDA card, and check their kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and nvcc; it builds the kernels from ``vf_nerf_torch/csrc`` on first
@@ -61,9 +61,36 @@ Phases, each printing one JSON line:
    VF kernels gained by 3.5 no f32 chain meets 1e-3);
    20 steps on one batch with the loss falling; ms per step and rays/s
    after 3 warm-up steps, peak memory, and the device's busy share over 3
-   steps (``torch.profiler``, table in ``chiprun_out/profile_train.txt``).
+   steps (``torch.profiler``, table in ``chiprun_out/profile_train.txt``);
+10. vf_init: ``fit_vf_init`` of the shipped VF net ("exterior_scene", the box
+   scene's wall radius, extent 1.5x that) on 8,192 points per step for 800
+   steps: ``FusedMLP`` at the first step's 8,192 points against the plain
+   version as in phase 8, one fused-MLP launch per step (launch count, and
+   3 and 13 kernels over 3 and 13 steps by ``torch.profiler``, whose
+   difference gives the kernels and device ms per step and the busy share),
+   the final loss below half the first's, and the ``.pkl`` loaded back by
+   ``load_vf_init`` giving the fitted net's field bit for bit; ms per step;
+11. runner: ``VectorFieldNerfRunner.train()`` of the shipped conf on the
+   synthetic box scene (8 views of 32 x 48, 1024 rays per step) for 60
+   epochs with a save every 20, from the phase-10 init: 5 / 2 / 1 launches
+   per step, the loss of the last 5 epochs below the first 5's, the
+   checkpoints, ``metrics.jsonl`` and ``convergence.json``, the fine count
+   40; a resume from ``latest`` at epoch 61 with the fine count 45 and the
+   state equal bit for bit; the run rate (every step after epoch 0 over the
+   wall time from the end of epoch 0 to the final synchronize, saves
+   included) against phase 9's bare step, the logged per-epoch rates, the
+   device's busy share over one more epoch and peak memory;
+12. eval: ``evaluate`` (render-images, then metrics) of the ``latest`` and
+   ``0`` checkpoints: the images, depths and ``metrics.json``, 3 MLP and 2
+   march launches per chunk, the trained mean PSNR above epoch 0's, and the
+   eval's rays/s; then the 512-ray tail chunk of a view through
+   ``render_image`` of the ``latest`` eval model (fine count 45, so 145
+   samples) against the port's plain path on the CPU, as in phase 5. These
+   three phases write under ``chiprun_out/smoke_run`` and delete the
+   checkpoints at the end.
 
-Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
+Then the ``{"kernels": [...]}`` line (``launches``: the runner's, with each
+other path's as ``launches_<path>``), the card's ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero without that last line. Weights are the port's seeded
 init with the VF kernels scaled by ``VF_GAIN``, so that the random field
@@ -86,6 +113,9 @@ import numpy as np
 import torch
 
 from vf_nerf_torch.config import parse_config
+from vf_nerf_torch.datasets.synthetic import SyntheticBoxDataset
+from vf_nerf_torch.datasets import dataset_dict
+from vf_nerf_torch.evaluation.evaluate import eval_model, evaluate
 from vf_nerf_torch.kernels import load_library
 from vf_nerf_torch.models.nerf import VectorFieldNerf
 from vf_nerf_torch.models.renderer import draw_uniforms, render_rays
@@ -98,6 +128,9 @@ from vf_nerf_torch.ops.ray_march import (MarchStatics, fused_ray_march,
                                          ray_march_backward_reference,
                                          ray_march_reference)
 from vf_nerf_torch.parallel import train_step as train
+from vf_nerf_torch.train.runner import VectorFieldNerfRunner
+from vf_nerf_torch.train.vf_init import (default_vf_config, fit_vf_init,
+                                         save_vf_init)
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -121,6 +154,12 @@ MIN_ARGMAX_AGREEMENT = 0.99
 # Training: the shipped conf's static fine growth pads the fine axis to
 # max_samples (100) and 30 samples are live at the start of training.
 N_FINE_ACTIVE = 30
+# VF init, runner and eval phases: the shipped VF net fitted on 8,192 points
+# per step, then the shipped conf trained on the synthetic box scene.
+VF_INIT_STEPS = 800
+VF_INIT_BATCH = 8192
+RUNNER_EPOCHS = 60
+RUN_DIR = OUT / "smoke_run"
 # Gradients, as max |Δg| / max |g| per tensor: FusedMLP against autograd
 # through mlp_reference on the card; the step against the CPU plain path in
 # float64, within GRAD_TOL or the CPU float32 path's own worst distance from
@@ -193,23 +232,31 @@ def tensor_core_instructions(lib_path) -> dict:
     return counts
 
 
-def kernels_per_call(fn, calls: int = 1):
-    """(CUDA kernels enqueued, device ms per call, kernel names) of
-    ``calls`` calls of ``fn``, by ``torch.profiler``, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
+def cuda_events(fn, calls: int = 1):
+    """(the CUDA kernels' profiler events, wall seconds) of ``calls`` calls
+    of ``fn`` ended by a synchronize."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     # The calls sit well inside the trace window: a kernel record at its very
     # edge can be dropped.
     with torch.profiler.profile(activities=acts) as prof:
         time.sleep(0.01)
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
         time.sleep(0.01)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA], seconds
+
+
+def kernels_per_call(fn, calls: int = 1):
+    """(CUDA kernels enqueued, device ms per call, kernel names) of
+    ``calls`` calls of ``fn``, by ``torch.profiler``, after one warm-up."""
+    fn()
+    events, _ = cuda_events(fn, calls)
     count = sum(e.count for e in events)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
     return count, device_ms, sorted(e.key[:60] for e in events)
@@ -232,8 +279,10 @@ def build_model(device) -> VectorFieldNerf:
     return model
 
 
-def addmm_chain(weights, x, skip_at, final_act):
-    """The cuBLAS yardstick: one addmm per layer with in-place ReLU."""
+def addmm_chain(weights, x, skip_at, final_act, keep=None):
+    """The cuBLAS yardstick: one addmm per layer with in-place ReLU. With a
+    list as ``keep``, every hidden layer's output is kept in it, the work of
+    the fused MLP's activation-save mode."""
     h = x
     for i, (w, b) in enumerate(weights):
         if i == skip_at:
@@ -241,6 +290,8 @@ def addmm_chain(weights, x, skip_at, final_act):
         h = torch.addmm(b, h, w)
         if i < len(weights) - 1:
             h.relu_()
+            if keep is not None:
+                keep.append(h)
     return torch.tanh(h) if final_act == "tanh" else torch.sigmoid(h)
 
 
@@ -424,7 +475,33 @@ def entry_inputs():
     return uv, pose, intr
 
 
-def phase_render(model, dev):
+def hold_render(model, out, uv, pose, intr, statics, draw_state, what):
+    """Hold the card's ``render_rays`` output ``out`` against the port's
+    plain path on the CPU from the same weights, the draws replayed from the
+    facade generator's ``draw_state``: the coarse argmax agrees on at least
+    ``MIN_ARGMAX_AGREEMENT`` of the rays, and on those rgb and depth are
+    within ``RENDER_TOL``. Returns (agreement, errors, the CPU output)."""
+    replay = torch.Generator(device=model.device)
+    replay.set_state(draw_state)
+    draws = {k: None if v is None else v.cpu() for k, v in draw_uniforms(
+        statics, uv.shape[0], replay, model.device).items()}
+    cpu_modules = copy.deepcopy(model.modules).cpu()
+    ref = render_rays(cpu_modules, uv.cpu(), pose.cpu(), intr.cpu(),
+                      model.near, model.far,
+                      torch.from_numpy(model.window_weights), statics,
+                      **draws)
+    agree = (out["argmax_coarse"].cpu() == ref["argmax_coarse"])
+    share = float(agree.float().mean())
+    check(share >= MIN_ARGMAX_AGREEMENT,
+          f"{what}: coarse argmax agreement {share} < {MIN_ARGMAX_AGREEMENT}")
+    errs = {k: float((out[k].cpu()[agree] - ref[k][agree]).abs().max())
+            for k in RENDER_TOL}
+    for k, tol in RENDER_TOL.items():
+        check(errs[k] <= tol, f"{what} {k} vs CPU plain path: {errs[k]}")
+    return share, errs, ref
+
+
+def phase_render(model):
     uv, pose, intr = entry_inputs()
     statics = model.render_statics()
     draw_state = model.generator.get_state()
@@ -441,25 +518,10 @@ def phase_render(model, dev):
     check(bool(torch.isfinite(out["rgb"]).all() and
                torch.isfinite(out["depth"]).all()), "render outputs finite")
 
-    # The port's plain path on the CPU from the same weights and draws.
-    replay = torch.Generator(device=dev)
-    replay.set_state(draw_state)
-    draws = {k: v.cpu() for k, v in
-             draw_uniforms(statics, N_RAYS, replay, dev).items()}
-    cpu_modules = copy.deepcopy(model.modules).cpu()
-    ref = render_rays(cpu_modules, torch.from_numpy(uv),
-                      torch.from_numpy(pose), torch.from_numpy(intr),
-                      model.near, model.far,
-                      torch.from_numpy(model.window_weights), statics,
-                      **draws)
-    agree = (out["argmax_coarse"].cpu() == ref["argmax_coarse"])
-    share = float(agree.float().mean())
-    check(share >= MIN_ARGMAX_AGREEMENT,
-          f"coarse argmax agreement {share} < {MIN_ARGMAX_AGREEMENT}")
-    errs = {k: float((out[k].cpu()[agree] - ref[k][agree]).abs().max())
-            for k in RENDER_TOL}
-    for k, tol in RENDER_TOL.items():
-        check(errs[k] <= tol, f"render {k} vs CPU plain path: {errs[k]}")
+    share, errs, ref = hold_render(model, out, torch.from_numpy(uv),
+                                   torch.from_numpy(pose),
+                                   torch.from_numpy(intr), statics,
+                                   draw_state, "render")
 
     def one_render():
         model.render(pose, uv, intr, epoch=0)
@@ -552,6 +614,49 @@ def hidden_forward(weights, x, skip_at):
     return torch.cat(hidden, 1)
 
 
+def hold_fused_mlp_training(name, weights, x, skip_at, act, gen) -> dict:
+    """``FusedMLP`` (the save-mode launch) on ``x`` against the plain
+    version: its output against the no-save launch bit for bit, its saved
+    activations against the plain forward's, and its gradients against
+    autograd through ``mlp_reference`` within ``MLP_GRAD_TOL``. Returns the
+    errors and the case's tensors (``leaves``, ``x_leaf``, ``inputs``,
+    ``acts``, the output ``y`` and the upstream gradient ``dy``)."""
+    leaves = [(w.clone().requires_grad_(True),
+               b.clone().requires_grad_(True)) for w, b in weights]
+    flat = [t for wb in leaves for t in wb]
+    x_leaf = x.clone().requires_grad_(act == "sigmoid")
+    with torch.no_grad():
+        plain_out = fused_mlp(weights, x, skip_at, act)
+    out = fused_mlp(leaves, x_leaf, skip_at, act)
+    acts = out.grad_fn.saved_tensors[1]
+    torch.cuda.synchronize()
+    check(torch.equal(out.detach(), plain_out),
+          f"fused_mlp {name}: the save-mode output differs from the no-save "
+          f"launch")
+    hidden = hidden_forward(weights, x, skip_at)
+    acts_err = max_rel(acts, hidden)
+    check(acts_err <= 1e-5, f"fused_mlp {name}: saved activations "
+          f"{acts_err} from the plain forward's")
+    # A pre-activation within the kernel's rounding of 0 flips its ReLU
+    # against the plain chain's and changes that point's gradients (weight
+    # gradients are sums over points, so a few flipped points show at
+    # ~1/sqrt(N)); the upstream gradient is zero on them.
+    same = ((acts > 0) == (hidden > 0)).all(1)
+    agree = float(same.float().mean())
+    dy = torch.randn(out.shape, generator=gen, device=x.device) * same[:, None]
+    inputs = flat + ([x_leaf] if x_leaf.requires_grad else [])
+    got = torch.autograd.grad(out, inputs, dy)
+    ref = torch.autograd.grad(mlp_reference(leaves, x_leaf, skip_at, act),
+                              inputs, dy)
+    err = max(max_rel(g, r) for g, r in zip(got, ref))
+    check(err <= MLP_GRAD_TOL and agree >= 0.99,
+          f"FusedMLP {name}: gradient error {err} (limit {MLP_GRAD_TOL}), "
+          f"ReLU masks agree on {agree} of the points")
+    return dict(max_rel_grad_err=err, relu_mask_agreement=agree,
+                acts_max_rel_err=acts_err, leaves=leaves, x_leaf=x_leaf,
+                inputs=inputs, acts=acts, y=plain_out, dy=dy)
+
+
 def train_statics(model):
     """The training step's statics: static fine growth pads the fine axis
     to max_samples; exterior supervision at the (rays × samples) // 10
@@ -573,7 +678,7 @@ def phase_train_kernels(model, dev):
     skip = model.modules.vf.skip_at
     gen = torch.Generator(device=dev).manual_seed(2)
     mlp_rows, totals = [], dict(ms=0.0, ms_no_save=0.0, backward_ms=0.0,
-                                plain_ms=0.0, bound_ms=0.0,
+                                plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                                 backward_bound_ms=0.0, max_abs_err=0.0)
     cases = [("vf_fine", vf_w, n_all, skip, "tanh"),
              ("colour", rn_w, n_all, None, "sigmoid"),
@@ -588,46 +693,18 @@ def phase_train_kernels(model, dev):
             x = torch.rand((n, weights[0][0].shape[0]), generator=gen,
                            device=dev) * 2 - 1
         x = x.contiguous()
-        leaves = [(w.clone().requires_grad_(True),
-                   b.clone().requires_grad_(True)) for w, b in weights]
-        flat = [t for wb in leaves for t in wb]
-        x_leaf = x.clone().requires_grad_(act == "sigmoid")
-        with torch.no_grad():
-            plain_out = fused_mlp(weights, x, skip_at, act)
-        out = fused_mlp(leaves, x_leaf, skip_at, act)
-        acts = out.grad_fn.saved_tensors[1]
-        torch.cuda.synchronize()
-        check(torch.equal(out.detach(), plain_out),
-              f"fused_mlp {name}: the save-mode output differs from the "
-              f"no-save launch")
-        hidden = hidden_forward(weights, x, skip_at)
-        acts_err = max_rel(acts, hidden)
-        check(acts_err <= 1e-5, f"fused_mlp {name}: saved activations "
-              f"{acts_err} from the plain forward's")
-        # A pre-activation within the kernel's rounding of 0 flips its ReLU
-        # against the plain chain's and changes that point's gradients
-        # (weight gradients are sums over points, so a few flipped points
-        # show at ~1/sqrt(N)); the upstream gradient is zero on them.
-        same = ((acts > 0) == (hidden > 0)).all(1)
-        agree = float(same.float().mean())
-        dy = torch.randn(out.shape, generator=gen, device=dev) * same[:, None]
-        inputs = flat + ([x_leaf] if x_leaf.requires_grad else [])
-        got = torch.autograd.grad(out, inputs, dy)
-        ref = torch.autograd.grad(mlp_reference(leaves, x_leaf, skip_at, act),
-                                  inputs, dy)
-        err = max(max_rel(g, r) for g, r in zip(got, ref))
-        check(err <= MLP_GRAD_TOL and agree >= 0.99,
-              f"FusedMLP {name}: gradient error {err} (limit "
-              f"{MLP_GRAD_TOL}), ReLU masks agree on {agree} of the points")
-        del got, ref, out
+        case = hold_fused_mlp_training(name, weights, x, skip_at, act, gen)
+        leaves, x_leaf, inputs, acts, y, dy = (
+            case[k] for k in ("leaves", "x_leaf", "inputs", "acts", "y", "dy"))
         # Times: the save-mode launch, the no-save launch, the backward's
         # cuBLAS products from the saved activations, and the plain
         # forward + backward by autograd.
         need_dx = act == "sigmoid"
-        y = plain_out
+        err = case["max_rel_grad_err"]
         row = dict(
             case=name, points=n, max_rel_grad_err=err,
-            relu_mask_agreement=agree, acts_max_rel_err=acts_err,
+            relu_mask_agreement=case["relu_mask_agreement"],
+            acts_max_rel_err=case["acts_max_rel_err"],
             ms=cuda_ms(lambda: fused_mlp(leaves, x_leaf, skip_at, act),
                        iters=5),
             ms_no_save=cuda_ms(lambda: fused_mlp(weights, x, skip_at, act),
@@ -637,7 +714,9 @@ def phase_train_kernels(model, dev):
                 iters=5),
             plain_ms=cuda_ms(lambda: torch.autograd.grad(
                 mlp_reference(leaves, x_leaf, skip_at, act), inputs, dy),
-                iters=3))
+                iters=3),
+            library_ms=cuda_ms(lambda: addmm_chain(weights, x, skip_at, act,
+                                                   keep=[]), iters=5))
         macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
         hidden_width = sum(w.shape[1] for w, _ in weights[:-1])
         out_dim = weights[-1][0].shape[1]
@@ -656,11 +735,11 @@ def phase_train_kernels(model, dev):
                                        bwd_bytes / PEAK_BYTES) * 1e3
         row["backward_tflops"] = bwd_flop / row["backward_ms"] / 1e9
         mlp_rows.append(row)
-        for k in ("ms", "ms_no_save", "backward_ms", "plain_ms", "bound_ms",
-                  "backward_bound_ms"):
+        for k in ("ms", "ms_no_save", "backward_ms", "plain_ms",
+                  "library_ms", "bound_ms", "backward_bound_ms"):
             totals[k] += row[k]
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
-        del acts, leaves, flat, x_leaf, inputs
+        del case, acts, leaves, x_leaf, inputs, y, dy
         torch.cuda.empty_cache()
 
     # The ray march's backward.
@@ -862,6 +941,319 @@ def phase_train_step(model, dev):
     return launches, ms
 
 
+def reset_launches() -> None:
+    fused_mlp.launches = 0
+    fused_ray_march.launches = 0
+    ray_march_backward.launches = 0
+
+
+def read_launches() -> dict:
+    return {"fused_mlp": fused_mlp.launches,
+            "fused_ray_march": fused_ray_march.launches,
+            "ray_march_backward": ray_march_backward.launches}
+
+
+def kernel_counts(fn) -> dict:
+    """The port's kernels by name, all kernels and their device ms over one
+    call of ``fn`` (``torch.profiler``), and the call's wall seconds."""
+    events, seconds = cuda_events(fn)
+    counts = {name: sum(e.count for e in events if f"{name}(" in e.key)
+              for name in ("fused_mlp_kernel", "ray_march_kernel",
+                           "ray_march_backward_kernel")}
+    return dict(counts, device_ms=sum(e.self_device_time_total
+                                      for e in events) / 1e3,
+                kernels=sum(e.count for e in events), seconds=seconds)
+
+
+def scene_runner_config(checkpoint: str = ""):
+    """The shipped conf on the synthetic box scene (8 views of 32 x 48,
+    1024 rays per step), ``RUNNER_EPOCHS`` epochs, a save every 20."""
+    cfg = parse_config(scene="box", config_path=str(CONF), expname="smoke",
+                       timestamp="run", checkpoint=checkpoint, offline=True)
+    cfg.dataset_config.dataset_name = "synthetic"
+    cfg.num_epochs = RUNNER_EPOCHS
+    cfg.save_frequency = 20
+    cfg.exps_folder = str(RUN_DIR / "exps")
+    return cfg
+
+
+def phase_vf_init(dev):
+    """VF init of the shipped VF net for the box scene, as
+    ``tools/tpu_smoke.py:77-83`` sizes it."""
+    wall = SyntheticBoxDataset().max_depth * 1.25 / 2.0
+    kw = dict(sample_extent=1.5 * wall, wall_radius=wall, batch=VF_INIT_BATCH,
+              seed=0, device=dev)
+
+    def fit(steps):
+        return fit_vf_init(default_vf_config(), "exterior_scene",
+                           np.zeros(3), steps=steps, log_every=0, **kw)
+
+    # The first step's kernel inputs: the seeded net (0 steps) and the
+    # points that fit_vf_init draws first from the generator of ``seed``.
+    net, _ = fit(0)
+    pts = 1.5 * wall * (torch.rand((VF_INIT_BATCH, 3), generator=torch.
+                                   Generator(device=dev).manual_seed(0),
+                                   device=dev) * 2 - 1)
+    case = hold_fused_mlp_training(
+        "vf_init", net.folded_weights(), positional_encoding(
+            pts, default_vf_config().embedder_multires).contiguous(),
+        net.skip_at, "tanh", torch.Generator(device=dev).manual_seed(4))
+    grad_check = {k: case[k] for k in ("max_rel_grad_err",
+                                       "relu_mask_agreement",
+                                       "acts_max_rel_err")}
+    del case, net
+    # Kernels per step and the device's time per step, from the difference
+    # of a 13-step and a 3-step fit (which removes the set-up's kernels).
+    few, many = kernel_counts(lambda: fit(3)), kernel_counts(lambda: fit(13))
+    check(few["fused_mlp_kernel"] == 3 and many["fused_mlp_kernel"] == 13,
+          f"vf_init: 3 and 13 steps enqueued {few['fused_mlp_kernel']} and "
+          f"{many['fused_mlp_kernel']} fused-MLP kernels")
+    per_step = {k: (many[k] - few[k]) / 10 for k in ("device_ms", "kernels")}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net, losses = fit_vf_init(default_vf_config(), "exterior_scene",
+                              np.zeros(3), steps=VF_INIT_STEPS, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == {"fused_mlp": VF_INIT_STEPS, "fused_ray_march": 0,
+                       "ray_march_backward": 0},
+          f"vf_init launches {launches}, expected one fused MLP per step")
+    losses = losses.cpu().numpy()
+    check(bool(np.isfinite(losses).all()) and losses[-1] < 0.5 * losses[0],
+          f"vf_init loss {losses[-1]} is not below half of the first step's "
+          f"{losses[0]}")
+    pkl = RUN_DIR / "vf_init.pkl"
+    save_vf_init(str(pkl), net, "exterior_scene", wall)
+    model = VectorFieldNerf(runner_config().vf_nerf_config, device=dev)
+    model.load_vf_init(str(pkl))
+    pts = (torch.rand((50_000, 3), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev) * 2 - 1) * 1.5 * wall
+    with torch.no_grad():
+        direct = fused_mlp(net.folded_weights(), positional_encoding(
+            pts, default_vf_config().embedder_multires).contiguous(),
+            skip_at=net.skip_at, final_act="tanh")[:, :3]
+    loaded = model.get_vector_field(pts)
+    check(torch.equal(loaded, direct),
+          "the VF init loaded back through load_vf_init does not give the "
+          "fitted net's field bit for bit")
+    ms = seconds / VF_INIT_STEPS * 1e3
+    emit({"phase": "vf_init", "steps": VF_INIT_STEPS,
+          "points_per_step": VF_INIT_BATCH, "wall_radius": wall,
+          "launches": launches, "first_step_fused_mlp": grad_check,
+          "first_loss": float(losses[0]), "final_loss": float(losses[-1]),
+          "seconds": seconds, "ms_per_step": ms,
+          "device_ms_per_step": per_step["device_ms"],
+          "kernels_per_step": per_step["kernels"],
+          "busy_share": per_step["device_ms"] / ms})
+    del model, net
+    return pkl, launches, ms
+
+
+def _state_equal(a: VectorFieldNerf, b: VectorFieldNerf) -> bool:
+    same = all(torch.equal(x, y) for x, y in zip(
+        a.modules.state_dict().values(), b.modules.state_dict().values()))
+    for key in ("mu", "nu"):
+        for group, tensors in getattr(a.optimizer, key).items():
+            same &= all(torch.equal(x, y) for x, y in zip(
+                tensors, getattr(b.optimizer, key)[group]))
+    return same and a.step == b.step
+
+
+def phase_runner(pkl, step_ms):
+    """``VectorFieldNerfRunner.train()`` of the shipped conf on the box
+    scene from the phase-10 VF init, then a resume from ``latest``."""
+    cfg = scene_runner_config()
+    runner = VectorFieldNerfRunner(cfg)
+    runner.model.load_vf_init(str(pkl))
+    steps = RUNNER_EPOCHS * len(runner.dataset)
+    # The run rate's window opens when the first epoch (and the first step's
+    # warm-up) has finished on the device.
+    train_epoch, marks = runner.train_epoch, {}
+
+    def marked_epoch(epoch, draws=None):
+        logged = train_epoch(epoch, draws=draws)
+        if epoch == 0:
+            torch.cuda.synchronize()
+            marks["after_epoch_0"] = time.perf_counter()
+        return logged
+
+    runner.train_epoch = marked_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    seconds = t_end - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == {"fused_mlp": 5 * steps, "fused_ray_march": 2 * steps,
+                       "ray_march_backward": steps},
+          f"runner launches {launches} over {steps} steps, expected 5 MLP, 2 "
+          f"march and 1 march backward per step")
+    with open(Path(runner.run_dir) / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    logged = [line for line in lines if line.get("_type") == "metrics"]
+    losses = [line["loss"] for line in logged]
+    check(len(logged) == RUNNER_EPOCHS,
+          f"metrics.jsonl has {len(logged)} metric lines, expected "
+          f"{RUNNER_EPOCHS}")
+    check(bool(np.isfinite(losses).all()) and
+          np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"runner: the mean loss of the last 5 epochs is not below the "
+          f"first 5's: {losses}")
+    ckpt_dir = Path(runner.ckpt_dir)
+    names = ["0.ckpt", "20.ckpt", "40.ckpt",
+             f"{RUNNER_EPOCHS - 1}.ckpt", "latest.ckpt"]
+    missing = [n for n in names if not (ckpt_dir / n).exists()]
+    missing += [n for n in ("metrics.jsonl", "convergence.json")
+                if not (Path(runner.run_dir) / n).exists()]
+    check(not missing, f"runner: missing {missing}")
+    check(runner.model.fine_n_samples == 40,
+          f"runner: fine count {runner.model.fine_n_samples}, expected 40 "
+          f"(growth at epochs 0 and 50)")
+
+    resumed_cfg = scene_runner_config("latest")
+    resumed = VectorFieldNerfRunner(resumed_cfg)
+    check(resumed_cfg.start_epoch == RUNNER_EPOCHS + 1,
+          f"resume: start_epoch {resumed_cfg.start_epoch}, expected "
+          f"{RUNNER_EPOCHS + 1}")
+    check(resumed.model.fine_n_samples == 45,
+          f"resume: fine count {resumed.model.fine_n_samples}, expected 45 "
+          f"(40 + 5 * (61 // 50))")
+    check(_state_equal(resumed.model, runner.model),
+          "resume: the loaded parameters, Adam moments or count differ from "
+          "the trained model's")
+
+    # The device's busy share over one more epoch of the resumed runner,
+    # ended by its epoch-end read.
+    epoch = resumed_cfg.start_epoch
+    busy = kernel_counts(lambda: (resumed.train_epoch(epoch),
+                                  resumed._resolve_pending_log()))
+    # The run rate: every step after the first epoch, saves, reads and the
+    # final save included, over the wall time from the end of epoch 0 to the
+    # final synchronize. The per-epoch logged rates are secondary.
+    window_steps = steps - len(runner.dataset)
+    window_s = t_end - marks["after_epoch_0"]
+    run_rate = window_steps * runner.dataset.total_pixels / window_s
+    rates = [line["rays_per_sec"] for line in logged[5:]]
+    bare = N_RAYS / step_ms * 1e3
+    emit({"phase": "runner", "epochs": RUNNER_EPOCHS, "steps": steps,
+          "rays_per_step": runner.dataset.total_pixels, "launches": launches,
+          "seconds": seconds, "ms_per_step": seconds / steps * 1e3,
+          "first5_loss": float(np.mean(losses[:5])),
+          "last5_loss": float(np.mean(losses[-5:])),
+          "fine_n_samples": runner.model.fine_n_samples,
+          "resume_start_epoch": resumed_cfg.start_epoch,
+          "resume_fine_n_samples": resumed.model.fine_n_samples,
+          "run_window_steps": window_steps, "run_window_s": window_s,
+          "run_ms_per_step": window_s / window_steps * 1e3,
+          "run_rays_per_s": run_rate,
+          "bare_step_rays_per_s": bare, "run_over_bare": run_rate / bare,
+          "logged_rays_per_s_median": float(np.median(rates)),
+          "logged_rays_per_s_min": float(np.min(rates)),
+          "epoch_busy_share": busy["device_ms"] / (busy["seconds"] * 1e3),
+          "epoch_seconds": busy["seconds"],
+          "epoch_kernels": busy["kernels"], "peak_memory_gb": peak_gb})
+    shutil.copy(Path(runner.run_dir) / "metrics.jsonl",
+                OUT / "smoke_runner_metrics.jsonl")
+    del runner, resumed
+    return launches
+
+
+def phase_eval():
+    """``evaluate`` of the trained run's ``latest`` and ``0`` checkpoints:
+    render-images (timed, launches counted), then metrics."""
+    evals = str(RUN_DIR / "evals")
+    scene = SyntheticBoxDataset()
+    n_views, (h, w) = len(scene), scene.image_size
+    chunks = n_views * -(-h * w // N_RAYS)
+    expected = {"fused_mlp": 3 * chunks, "fused_ray_march": 2 * chunks,
+                "ray_march_backward": 0}
+    rows = {}
+    for checkpoint in ("latest", "0"):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        folder = Path(evaluate(scene_runner_config(checkpoint),
+                               "render-images", 256, evals, N_RAYS, 0.05, 8))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches == expected,
+              f"eval {checkpoint} launches {launches}, expected {expected}")
+        evaluate(scene_runner_config(checkpoint), "metrics", 256, evals,
+                 N_RAYS, 0.05, 8)
+        with open(folder / "metrics.json") as f:
+            scores = json.load(f)
+        missing = [n for i in range(n_views)
+                   for n in (f"image-{i}.png", f"depth-{i}.npy")
+                   if not (folder / "rendered_images" / n).exists()]
+        check(not missing and len(scores) == n_views + 1,
+              f"eval {checkpoint}: missing {missing} or per-image scores")
+        rows[checkpoint] = dict(mean_psnr=scores["mean_psnr"],
+                                seconds=seconds, launches=launches,
+                                rays_per_s=n_views * h * w / seconds)
+    check(rows["latest"]["mean_psnr"] > rows["0"]["mean_psnr"],
+          f"eval: the trained checkpoint's mean PSNR "
+          f"{rows['latest']['mean_psnr']} is not above epoch 0's "
+          f"{rows['0']['mean_psnr']}")
+    emit({"phase": "eval", "views": n_views, "chunks": chunks,
+          "checkpoints": rows, "tail_chunk": hold_eval_tail_chunk()})
+    return rows["latest"]["launches"]
+
+
+def hold_eval_tail_chunk() -> dict:
+    """The last chunk of view 0 (1,536 pixels in chunks of 1,024: 512 rays)
+    through ``render_image`` of the ``latest`` eval model (fine count 45),
+    against the port's plain path on the CPU."""
+    cfg = scene_runner_config("latest")
+    model, epoch = eval_model(cfg)
+    dataset = dataset_dict[cfg.dataset_config.dataset_name](
+        cfg.dataset_config)
+    dataset.all_pixels = True
+    model.near, model.far = dataset.get_bounds()
+    batch = dataset[0]
+    uv = batch["uv"][len(batch["uv"]) // N_RAYS * N_RAYS:]
+    n = len(uv)
+    check(n == 512 and model.fine_n_samples == 45,
+          f"eval tail chunk: {n} rays at fine count {model.fine_n_samples}, "
+          f"expected 512 at 45")
+    statics = model.render_statics(white_background=dataset.white_bkgd)
+    draw_state = model.generator.get_state()
+    reset_launches()
+    rgb, depth = model.render_image(uv, batch["pose"][0],
+                                    batch["intrinsics"][0], epoch,
+                                    dataset.white_bkgd, N_RAYS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"fused_mlp": 3, "fused_ray_march": 2,
+                       "ray_march_backward": 0},
+          f"eval tail chunk launches {launches}, expected 3 MLP and 2 march")
+    # The same rays and draws through render_rays on the card, for the
+    # coarse argmax that chose each ray's fine branch.
+    replay = torch.Generator(device=model.device)
+    replay.set_state(draw_state)
+    uv_t = model.to_device(uv)
+    pose = model.to_device(batch["pose"][0]).reshape(4, 4).expand(n, 4, 4)
+    intr = model.to_device(batch["intrinsics"][0]).reshape(4, 4).expand(
+        n, 4, 4)
+    out = render_rays(model.modules, uv_t, pose, intr, model.near, model.far,
+                      model.to_device(model.window_weights), statics,
+                      generator=replay)
+    check(torch.equal(out["rgb"], rgb) and torch.equal(out["depth"], depth),
+          "eval tail chunk: render_image differs from render_rays on the "
+          "same rays and draws")
+    share, errs, _ = hold_render(model, out, uv_t, pose, intr, statics,
+                                 draw_state, "eval tail chunk")
+    return {"rays": n, "samples": statics.n_coarse + statics.n_fine,
+            "launches": launches, "argmax_agreement": share,
+            "max_abs_err_vs_cpu_plain": errs, "tol": RENDER_TOL}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -892,36 +1284,53 @@ def main() -> int:
     model = build_model(dev)
     mlp = phase_mlp(model, dev)
     march = phase_march(model, dev)
-    launches, render_ms = phase_render(model, dev)
+    launches, render_ms = phase_render(model)
     phase_render_image(model)
     phase_profile(model, render_ms)
     mlp_train, march_bwd = phase_train_kernels(model, dev)
     train_launches, step_ms = phase_train_step(model, dev)
+    del model
+    torch.cuda.empty_cache()
+    if RUN_DIR.exists():
+        shutil.rmtree(RUN_DIR)
+    RUN_DIR.mkdir(parents=True)
+    pkl, vf_launches, _ = phase_vf_init(dev)
+    runner_launches = phase_runner(pkl, step_ms)
+    eval_launches = phase_eval()
+    # The checkpoints and the VF init (~10 MB each) stay out of chiprun_out.
+    shutil.rmtree(RUN_DIR / "exps")
+    pkl.unlink()
+    paths = {"runner": runner_launches, "train_step": train_launches,
+             "render": launches, "vf_init": vf_launches,
+             "eval": eval_launches}
 
-    # ``launches``: the training step's (this slice's main path);
-    # ``launches_render``: the eval render's. Times, bounds and errors are
-    # at the render's shapes for the forward kernels (the training step's
-    # save-mode times are ``train_ms`` and the phase lines).
+    def launch_counts(name):
+        """``launches``: this slice's main path, ``VectorFieldNerfRunner.
+        train()``; ``launches_<path>``: each other path's run."""
+        return dict(launches=paths["runner"][name],
+                    **{f"launches_{path}": counts.get(name, 0)
+                       for path, counts in paths.items() if path != "runner"})
+
+    # Times, bounds and errors are at the render's shapes for the forward
+    # kernels; the training step's save-mode times are ``train_ms`` (the
+    # cuBLAS chain that keeps every hidden output: ``train_library_ms``).
     kernels = [
         dict(name="fused_mlp", route="cuda",
              source="vf_nerf_torch/csrc/fused_mlp.cu",
              replaces="vf_nerf_tpu/ops/fused_mlp.py:149",
-             launches=train_launches["fused_mlp"],
-             launches_render=launches["fused_mlp"], bound_by="operations",
+             **launch_counts("fused_mlp"), bound_by="operations",
              train_ms=mlp_train["ms"], train_bound_ms=mlp_train["bound_ms"],
-             **mlp),
+             train_library_ms=mlp_train["library_ms"], **mlp),
         dict(name="fused_ray_march", route="cuda",
              source="vf_nerf_torch/csrc/ray_march.cu",
              replaces="vf_nerf_tpu/ops/ray_march.py:234",
-             launches=train_launches["fused_ray_march"],
-             launches_render=launches["fused_ray_march"], bound_by="bytes",
+             **launch_counts("fused_ray_march"), bound_by="bytes",
              library_ms=None, **march),
         dict(name="ray_march_backward", route="cuda",
              source="vf_nerf_torch/csrc/ray_march.cu",
              replaces="vf_nerf_tpu/ops/ray_march.py:234",
-             launches=train_launches["ray_march_backward"],
-             launches_render=0, bound_by="bytes", library_ms=None,
-             **march_bwd),
+             **launch_counts("ray_march_backward"), bound_by="bytes",
+             library_ms=None, **march_bwd),
     ]
     result = {"kernels": kernels}
     OUT.mkdir(exist_ok=True)

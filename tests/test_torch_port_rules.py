@@ -87,6 +87,46 @@ def test_default_device_is_cuda_and_never_the_cpu():
     assert resolve_device("cpu").type == "cpu"
 
 
+def _entry_point_calls(tmp_path):
+    """The training runner, the VF-init fit and the evaluation, each called
+    as a user would without naming a device."""
+    from vf_nerf_torch.config.parser import config_device
+    from vf_nerf_torch.evaluation.evaluate import evaluate
+    from vf_nerf_torch.train.runner import VectorFieldNerfRunner
+    from vf_nerf_torch.train.vf_init import default_vf_config, fit_vf_init
+
+    def runner_config(gpu="auto"):
+        cfg = parse_config(scene="s", config_path=CONF, gpu=gpu,
+                           timestamp="t", offline=True)
+        cfg.dataset_config.dataset_name = "synthetic"
+        cfg.exps_folder = str(tmp_path / "exps")
+        return cfg
+
+    assert config_device(runner_config()) == "cuda"
+    assert config_device(runner_config("cpu")) == "cpu"
+    return {
+        "runner": lambda: VectorFieldNerfRunner(runner_config()),
+        "vf_init": lambda: fit_vf_init(default_vf_config(), "exterior_scene",
+                                       [0, 0, 0], 1.0, 1.0, steps=1),
+        "evaluate": lambda: evaluate(runner_config(), "metrics", 32,
+                                     str(tmp_path / "evals"), 1024, 0.05, 8),
+    }
+
+
+@pytest.mark.parametrize("entry", ["runner", "vf_init", "evaluate"])
+def test_train_and_eval_entry_points_default_to_cuda(entry, tmp_path):
+    """Without ``device="cpu"`` or ``--gpu cpu`` the runner, the VF-init fit
+    and the evaluation run on CUDA, and without a card they raise before
+    writing anything."""
+    call = _entry_point_calls(tmp_path)[entry]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is CUDA there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    assert not (tmp_path / "exps").exists()
+    assert not (tmp_path / "evals").exists()
+
+
 @pytest.mark.parametrize("change", [
     dict(rendering="nerf"), dict(train=True), dict(reuse_coarse=True),
     dict(compute_dir_derivatives=True), "n_fine_active"])

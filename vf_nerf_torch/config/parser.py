@@ -1,8 +1,14 @@
-"""HOCON → config dataclasses (the port's copy of
-``vf_nerf_tpu/config/parser.py::parse_config``; reference
-``config_parser/vf_nerf_config_parser.py:44-108``)."""
+"""The command lines and HOCON → config dataclasses (the port's copy of
+``vf_nerf_tpu/config/parser.py``; reference
+``config_parser/vf_nerf_config_parser.py:11-108``).
+
+The flags are the JAX package's. ``--gpu cpu`` runs on the CPU; any other
+value, the default ``auto`` included, runs on CUDA and fails without it.
+"""
 
 from __future__ import annotations
+
+import argparse
 
 from vf_nerf_torch.config import hocon
 from vf_nerf_torch.config.schema import (DatasetConfig, DensityConfig,
@@ -12,6 +18,66 @@ from vf_nerf_torch.config.schema import (DatasetConfig, DensityConfig,
                                          VFNerfConfig, VFNetConfig,
                                          VFRunnerConfig,
                                          VFSupervisedLossWeights)
+
+
+_GPU_HELP = "'cpu' runs on the CPU; any other value runs on CUDA."
+
+
+def argparser() -> argparse.ArgumentParser:
+    """Training CLI (reference ``vf_nerf_config_parser.py:11-22``)."""
+    parser = argparse.ArgumentParser(description="VFNerfRunner")
+    parser.add_argument("--scene", type=str, default="65", help="Scene name.")
+    parser.add_argument("--config_path", type=str,
+                        default="./confs/vf_nerf.conf",
+                        help="config file path")
+    parser.add_argument("--gpu", type=str, default="auto", help=_GPU_HELP)
+    parser.add_argument("--expname", type=str, default="dtu",
+                        help="Experiment name.")
+    parser.add_argument("--timestamp", type=str, default="", help="Timestamp.")
+    parser.add_argument("--checkpoint", type=str, default="",
+                        help="Checkpoint name (e.g. 'latest').")
+    parser.add_argument("--data_root_dir", type=str, default="data",
+                        help="Data root directory.")
+    parser.add_argument("--offline", action="store_true",
+                        help="Disable metric upload; log JSONL only.")
+    return parser
+
+
+def eval_argparser() -> argparse.ArgumentParser:
+    """Evaluation CLI (reference ``vf_nerf_config_parser.py:25-41``)."""
+    parser = argparse.ArgumentParser(description="Evaluate")
+    parser.add_argument("--scene", type=str, default="65", help="Scene name.")
+    parser.add_argument("--config_path", type=str,
+                        default="./confs/vf_nerf.conf",
+                        help="config file path")
+    parser.add_argument("--gpu", type=str, default="auto", help=_GPU_HELP)
+    parser.add_argument("--resolution", type=int, default=256,
+                        help="Resolution.")
+    parser.add_argument("--method", type=str, default="render-images",
+                        help="Method.")
+    parser.add_argument("--expname", type=str, default="dtu",
+                        help="Experiment name.")
+    parser.add_argument("--data_root_dir", type=str, default="data",
+                        help="Data root directory.")
+    parser.add_argument("--timestamp", type=str, default="", help="Timestamp.")
+    parser.add_argument("--checkpoint", type=str, default="",
+                        help="Checkpoint name.")
+    parser.add_argument("--eval_folder", type=str, default="evals_vf_nerf",
+                        help="Evaluation folder.")
+    parser.add_argument("--chunk_size", type=int, default=1024,
+                        help="Rays per render chunk.")
+    parser.add_argument("--distance_thresh", type=float, default=0.05,
+                        help="Distance threshold for 3d metrics.")
+    parser.add_argument("--num_quadrants", type=int, default=8,
+                        help="Number of quadrants for marching cubes.")
+    return parser
+
+
+def config_device(config: VFRunnerConfig) -> str:
+    """The device a parsed config asks for: ``"cpu"`` when its platform is
+    ``cpu`` (``--gpu cpu``), else ``"cuda"``."""
+    platform = config.vf_nerf_config.device_config.platform
+    return "cpu" if platform == "cpu" else "cuda"
 
 
 def parse_config(scene: str,

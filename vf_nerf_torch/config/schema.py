@@ -8,8 +8,9 @@ kept 1:1; only the comments speak of the port.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -80,6 +81,9 @@ class RaySamplerConfig:
     fine_range: float = 0.5
     increase_every: int = 100
     max_samples: int = 100
+
+    def fine_sampling(self) -> bool:
+        return self.n_importance > 0
 
 
 @dataclass
@@ -227,3 +231,14 @@ class VFRunnerConfig:
     offline: bool = False
     convergence_loss_threshold: float = 0.0
 
+
+def asdict_config(cfg: Any) -> Any:
+    """A config dataclass tree as plain dicts and lists (for the log)."""
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: asdict_config(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [asdict_config(v) for v in cfg]
+    if isinstance(cfg, dict):
+        return {k: asdict_config(v) for k, v in cfg.items()}
+    return cfg

@@ -1,0 +1,624 @@
+"""Synthetic box-room and office datasets (port of
+``vf_nerf_tpu/datasets/synthetic.py``).
+
+The in-repo oracle scenes of both packages. ``SyntheticBoxDataset`` is
+a cube room with cameras inside: analytic ray-box depth, a smooth procedural
+wall texture, an analytic vector field (direction to the nearest wall) and
+the exact GT mesh. ``SyntheticOfficeDataset`` is the hard-regime stand-in for
+the reference's Replica ``office0``
+(``datasets/normal_datasets/replica_dataset.py:19``): a *non-convex*
+L-shaped room with interior occluders, a thin free-standing wall and
+higher-frequency per-object textures. The JAX package's
+writers of these scenes in Replica's and ScanNet's formats wait for the
+port of those loaders.
+
+The office scene is represented by its exact free-space boundary ∂F as a
+list of axis-aligned surface rectangles. One representation drives all
+three oracles consistently: ray tracing (first rect hit = GT depth),
+GT mesh (two triangles per rect) and the analytic vector field (unit
+vector to the closest point on ∂F — the correct field even inside
+occluders, where a naive per-primitive closest point picks covered wall
+area).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+
+from vf_nerf_torch.config.schema import DatasetConfig
+from vf_nerf_torch.datasets.base import BaseDataset, pixel_grid
+
+
+def box_mesh(half_size: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Cube [-L, L]^3 as 8 vertices / 12 triangles."""
+    L = half_size
+    verts = np.array([[x, y, z] for x in (-L, L) for y in (-L, L)
+                      for z in (-L, L)], np.float32)
+    faces = np.array([
+        [0, 1, 3], [0, 3, 2],  # x = -L
+        [4, 6, 7], [4, 7, 5],  # x = +L
+        [0, 4, 5], [0, 5, 1],  # y = -L
+        [2, 3, 7], [2, 7, 6],  # y = +L
+        [0, 2, 6], [0, 6, 4],  # z = -L
+        [1, 5, 7], [1, 7, 3],  # z = +L
+    ], np.int32)
+    return verts, faces
+
+
+def wall_color(points: np.ndarray) -> np.ndarray:
+    """Smooth procedural RGB in [0, 1] as a function of 3D position."""
+    p = np.asarray(points)
+    r = 0.5 + 0.35 * np.sin(1.7 * p[..., 0]) * np.cos(2.3 * p[..., 1])
+    g = 0.5 + 0.35 * np.sin(2.1 * p[..., 1] + 1.0) * np.cos(1.3 * p[..., 2])
+    b = 0.5 + 0.35 * np.sin(1.1 * p[..., 2] + 2.0) * np.cos(1.9 * p[..., 0])
+    return np.stack([r, g, b], axis=-1).astype(np.float32)
+
+
+def analytic_vf(points: np.ndarray, half_size: float) -> np.ndarray:
+    """Unit field pointing toward the nearest wall of the cube — the
+    integration-test oracle for the learned field. Inside, it points outward
+    along the closest-wall axis; outside, it points back toward the cube, so
+    the field flips sign across the surface (the sign flip is what VF-NeRF's
+    density detects)."""
+    p = np.asarray(points, np.float32)
+    flat = p.reshape(-1, 3)
+    dist_to_wall = half_size - np.abs(flat)      # per axis; <0 outside
+    inside = (dist_to_wall > 0).all(axis=-1)
+
+    # Inside: unit vector toward the nearest wall.
+    axis = np.argmin(dist_to_wall, axis=-1)
+    sign = np.sign(flat[np.arange(len(flat)), axis])
+    sign = np.where(sign == 0, 1.0, sign)
+    v_in = np.zeros_like(flat)
+    v_in[np.arange(len(flat)), axis] = sign
+
+    # Outside: toward the closest point on the cube surface.
+    closest = np.clip(flat, -half_size, half_size)
+    delta = closest - flat
+    norm = np.linalg.norm(delta, axis=-1, keepdims=True)
+    v_out = delta / np.maximum(norm, 1e-8)
+
+    v = np.where(inside[:, None], v_in, v_out)
+    return v.reshape(p.shape).astype(np.float32)
+
+
+def _ray_box_exit_t(origins: np.ndarray, dirs: np.ndarray,
+                    half_size: float) -> np.ndarray:
+    """Smallest positive t with origin + t*dir on the cube boundary (cameras
+    are inside, so this is the exit distance)."""
+    L = half_size
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (-L - origins) / dirs
+        t2 = (L - origins) / dirs
+    t_far = np.where(dirs == 0, np.inf, np.maximum(t1, t2))
+    return t_far.min(axis=-1)
+
+
+class SyntheticBoxDataset(BaseDataset):
+    """Cameras inside a textured cube room looking outward."""
+
+    def __init__(self,
+                 config: Optional[DatasetConfig] = None,
+                 n_images: int = 8,
+                 image_size: Tuple[int, int] = (32, 48),
+                 half_size: float = 2.0,
+                 pixels_per_batch: int = 512,
+                 shuffle_views: bool = True,
+                 all_pixels: bool = False,
+                 seed: int = 0,
+                 pitch_range: float = 0.3) -> None:
+        if config is not None:
+            # Registry path: dataset_dict[name](config) like the reference.
+            pixels_per_batch = config.pixels_per_batch
+            shuffle_views = config.shuffle_views
+            all_pixels = config.all_pixels
+        super().__init__(n_images=n_images, shuffle_views=shuffle_views,
+                         pixels_per_batch=pixels_per_batch,
+                         all_pixels=all_pixels)
+        self.half_size = half_size
+        # Camera pitch spread (radians). The 0.3 default leaves floor/
+        # ceiling largely unobserved (recall in 3D metrics is bounded by
+        # view coverage); widen (e.g. 1.1) for full-coverage studies.
+        self.pitch_range = pitch_range
+        self.image_size = image_size
+        h, w = image_size
+
+        k = np.eye(4, dtype=np.float32)
+        k[0, 0] = k[1, 1] = 0.6 * w
+        k[0, 2], k[1, 2] = w / 2.0, h / 2.0
+        self.intrinsics = k
+
+        rng = np.random.RandomState(seed)
+        self.poses = self._make_poses(rng)
+        self.rgb_images, self.depth_images = self._render_gt()
+        self.max_depth = float(self.depth_images.max())
+        self.scale = half_size * 1.1
+
+    def _make_poses(self, rng: np.random.RandomState) -> np.ndarray:
+        """Cameras near the centre, looking in spread-out directions."""
+        poses = []
+        for i in range(self.n_images):
+            yaw = 2 * np.pi * i / self.n_images + rng.uniform(-0.2, 0.2)
+            pitch = rng.uniform(-self.pitch_range, self.pitch_range)
+            forward = np.array([np.cos(pitch) * np.cos(yaw),
+                                np.cos(pitch) * np.sin(yaw),
+                                np.sin(pitch)], np.float32)
+            up = np.array([0, 0, 1], np.float32)
+            right = np.cross(forward, up)
+            right /= np.linalg.norm(right)
+            down = np.cross(forward, right)
+            # camera x→right, y→down(image), z→forward (pinhole convention)
+            rot = np.stack([right, down, forward], axis=1)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = rot
+            pose[:3, 3] = rng.uniform(-0.4, 0.4, 3) * self.half_size * 0.4
+            poses.append(pose)
+        return np.stack(poses)
+
+    def _render_gt(self) -> Tuple[np.ndarray, np.ndarray]:
+        h, w = self.image_size
+        uv = pixel_grid(h, w)
+        fx, fy = self.intrinsics[0, 0], self.intrinsics[1, 1]
+        cx, cy = self.intrinsics[0, 2], self.intrinsics[1, 2]
+        x_cam = (uv[:, 0] - cx) / fx
+        y_cam = (uv[:, 1] - cy) / fy
+        dirs_cam = np.stack([x_cam, y_cam, np.ones_like(x_cam)], axis=-1)
+
+        rgbs, depths = [], []
+        for pose in self.poses:
+            dirs = dirs_cam @ pose[:3, :3].T
+            origin = pose[:3, 3]
+            t = _ray_box_exit_t(origin[None, :], dirs, self.half_size)
+            hits = origin[None, :] + t[:, None] * dirs
+            rgbs.append(wall_color(hits))
+            depths.append(t[:, None].astype(np.float32))
+        return np.asarray(rgbs, np.float32), np.asarray(depths, np.float32)
+
+    def get_bounds(self) -> Tuple[float, float]:
+        return 0.0, self.max_depth * 1.25
+
+    def get_vf_init_method(self) -> Tuple[str, str]:
+        return "exterior_synthetic", ""
+
+    def get_centroid(self) -> np.ndarray:
+        return np.zeros(3, np.float32)
+
+    def gt_mesh(self) -> Tuple[np.ndarray, np.ndarray]:
+        return box_mesh(self.half_size)
+
+
+# ===================================================================== office
+# Hard-regime synthetic scene (VERDICT r3 #2): non-convex free space,
+# interior occluders, a thin free-standing wall, textured surfaces.
+
+class Rect(NamedTuple):
+    """Axis-aligned surface rectangle of the free-space boundary ∂F.
+
+    ``axis`` is the fixed axis, ``coord`` its plane coordinate, ``normal``
+    the outward direction (+1/-1 along ``axis``, pointing INTO free space),
+    ``lo``/``hi`` the 2D extents on the remaining axes in ascending axis
+    order, ``group`` a small int naming the object (texture id).
+    """
+
+    axis: int
+    coord: float
+    normal: float
+    lo: Tuple[float, float]
+    hi: Tuple[float, float]
+    group: int
+
+
+# group ids for texture tints
+G_WALL, G_FLOOR, G_CEIL, G_BLOCK, G_COLUMN, G_THINWALL, G_DESK = range(7)
+
+
+def _subtract_holes(lo: Sequence[float], hi: Sequence[float],
+                    holes: Sequence[Tuple[Sequence[float], Sequence[float]]]
+                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """2D rectangle [lo, hi] minus axis-aligned holes → disjoint rect cover
+    of the remainder (guillotine split; holes may touch the border and each
+    other but must not overlap one another)."""
+    rects = [(np.asarray(lo, np.float64), np.asarray(hi, np.float64))]
+    for hlo, hhi in holes:
+        hlo = np.asarray(hlo, np.float64)
+        hhi = np.asarray(hhi, np.float64)
+        out: List[Tuple[np.ndarray, np.ndarray]] = []
+        for rlo, rhi in rects:
+            clo, chi = np.maximum(hlo, rlo), np.minimum(hhi, rhi)
+            if (clo >= chi).any():  # hole misses this piece
+                out.append((rlo, rhi))
+                continue
+            if clo[0] > rlo[0]:  # left strip
+                out.append((rlo, np.array([clo[0], rhi[1]])))
+            if chi[0] < rhi[0]:  # right strip
+                out.append((np.array([chi[0], rlo[1]]), rhi))
+            if clo[1] > rlo[1]:  # bottom of middle band
+                out.append((np.array([clo[0], rlo[1]]),
+                            np.array([chi[0], clo[1]])))
+            if chi[1] < rhi[1]:  # top of middle band
+                out.append((np.array([clo[0], chi[1]]),
+                            np.array([chi[0], rhi[1]])))
+        rects = out
+    return rects
+
+
+def _other_axes(axis: int) -> Tuple[int, int]:
+    return tuple(a for a in range(3) if a != axis)  # type: ignore[return-value]
+
+
+def _solid_faces(lo3: Sequence[float], hi3: Sequence[float], group: int,
+                 skip: Sequence[Tuple[int, int]] = ()) -> List[Rect]:
+    """The 6 faces of a solid box as ∂F rects (outward normals away from the
+    solid); ``skip`` lists (axis, side) faces in contact with other occupied
+    volume (side 0 = lo face, 1 = hi face)."""
+    lo3 = np.asarray(lo3, np.float64)
+    hi3 = np.asarray(hi3, np.float64)
+    rects = []
+    for axis in range(3):
+        a0, a1 = _other_axes(axis)
+        for side, (coord, normal) in enumerate(
+                [(lo3[axis], -1.0), (hi3[axis], 1.0)]):
+            if (axis, side) in skip:
+                continue
+            rects.append(Rect(axis, float(coord), normal,
+                              (float(lo3[a0]), float(lo3[a1])),
+                              (float(hi3[a0]), float(hi3[a1])), group))
+    return rects
+
+
+def office_layout(half_size: float = 2.0
+                  ) -> Tuple[List[Rect],
+                             List[Tuple[np.ndarray, np.ndarray]]]:
+    """The fixed office scene at scale ``half_size`` (authored at L = 2).
+
+    Returns (surface rects = exact ∂F, solid boxes for point classification).
+    Free space = L-shaped room (a corner block removes the (+x, +y) quadrant
+    quarter) minus a floor-standing column, a thin free-standing wall
+    (thickness 0.06·s) and a low desk slab.
+    """
+    s = half_size / 2.0
+    L = half_size
+
+    def sc(v):
+        return tuple(x * s for x in v)
+
+    block_lo, block_hi = sc((0.4, 0.4, -2.0)), sc((2.0, 2.0, 2.0))
+    column_lo, column_hi = sc((-1.3, -0.5, -2.0)), sc((-0.9, -0.1, 0.9))
+    twall_lo, twall_hi = sc((-0.3, -1.7, -2.0)), sc((-0.24, -0.5, 0.5))
+    desk_lo, desk_hi = sc((0.7, -1.6, -2.0)), sc((1.5, -0.9, -1.25))
+
+    rects: List[Rect] = []
+
+    # Room walls (normals point into the room). The corner block swallows
+    # the x=+L wall for y>0.4s and the y=+L wall for x>0.4s.
+    rects.append(Rect(0, -L, +1.0, (-L, -L), (L, L), G_WALL))          # x=-L
+    rects.append(Rect(0, +L, -1.0, (-L, -L), (block_lo[1], L), G_WALL))
+    rects.append(Rect(1, -L, +1.0, (-L, -L), (L, L), G_WALL))          # y=-L
+    rects.append(Rect(1, +L, -1.0, (-L, -L), (block_lo[0], L), G_WALL))
+
+    # Floor: L-shape pieces minus standing-object footprints.
+    floor_pieces = [((-L, -L), (block_lo[0], L)),
+                    ((block_lo[0], -L), (L, block_lo[1]))]
+    footprints = [((column_lo[0], column_lo[1]), (column_hi[0],
+                                                  column_hi[1])),
+                  ((twall_lo[0], twall_lo[1]), (twall_hi[0], twall_hi[1])),
+                  ((desk_lo[0], desk_lo[1]), (desk_hi[0], desk_hi[1]))]
+    for plo, phi in floor_pieces:
+        inside = [(flo, fhi) for flo, fhi in footprints
+                  if (np.maximum(flo, plo) < np.minimum(fhi, phi)).all()]
+        for rlo, rhi in _subtract_holes(plo, phi, inside):
+            rects.append(Rect(2, -L, +1.0, (float(rlo[0]), float(rlo[1])),
+                              (float(rhi[0]), float(rhi[1])), G_FLOOR))
+
+    # Ceiling: L-shape pieces (block reaches the ceiling; nothing else does).
+    for plo, phi in floor_pieces:
+        rects.append(Rect(2, +L, -1.0, plo, phi, G_CEIL))
+
+    # Corner block: only its two inward faces are exposed.
+    rects.append(Rect(0, block_lo[0], -1.0, (block_lo[1], -L),
+                      (block_hi[1], L), G_BLOCK))
+    rects.append(Rect(1, block_lo[1], -1.0, (block_lo[0], -L),
+                      (block_hi[0], L), G_BLOCK))
+
+    # Standing objects: all faces except the floor-contact bottom.
+    rects += _solid_faces(column_lo, column_hi, G_COLUMN, skip=[(2, 0)])
+    rects += _solid_faces(twall_lo, twall_hi, G_THINWALL, skip=[(2, 0)])
+    rects += _solid_faces(desk_lo, desk_hi, G_DESK, skip=[(2, 0)])
+
+    solids = [(np.asarray(lo, np.float64), np.asarray(hi, np.float64))
+              for lo, hi in [(block_lo, block_hi), (column_lo, column_hi),
+                             (twall_lo, twall_hi), (desk_lo, desk_hi)]]
+    return rects, solids
+
+
+def point_in_free_space(points: np.ndarray, half_size: float,
+                        solids) -> np.ndarray:
+    """Boolean mask: strictly inside the room and outside every solid."""
+    p = np.asarray(points, np.float64)
+    free = (np.abs(p) < half_size).all(axis=-1)
+    for lo, hi in solids:
+        free &= ~((p > lo) & (p < hi)).all(axis=-1)
+    return free
+
+
+def trace_rects(origins: np.ndarray, dirs: np.ndarray,
+                rects: Sequence[Rect]) -> Tuple[np.ndarray, np.ndarray]:
+    """First-hit ray trace against ∂F: returns (t, group) per ray, with
+    t = inf / group = -1 for rays that escape (cannot happen from free
+    space as ∂F is closed)."""
+    origins = np.broadcast_to(np.asarray(origins, np.float64),
+                              np.asarray(dirs).shape)
+    dirs = np.asarray(dirs, np.float64)
+    n = dirs.shape[0]
+    best_t = np.full(n, np.inf)
+    best_g = np.full(n, -1, np.int32)
+    for r in rects:
+        a0, a1 = _other_axes(r.axis)
+        denom = dirs[:, r.axis]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (r.coord - origins[:, r.axis]) / denom
+            # inside the errstate guard: inf * 0 → nan for rays parallel
+            # to the plane (they fail the denom != 0 test below anyway)
+            u = origins[:, a0] + t * dirs[:, a0]
+            v = origins[:, a1] + t * dirs[:, a1]
+        eps = 1e-9
+        ok = ((denom != 0) & (t > 1e-6)
+              & (u >= r.lo[0] - eps) & (u <= r.hi[0] + eps)
+              & (v >= r.lo[1] - eps) & (v <= r.hi[1] + eps)
+              & (t < best_t))
+        best_t = np.where(ok, t, best_t)
+        best_g = np.where(ok, r.group, best_g)
+    return best_t, best_g
+
+
+def rect_closest_points(points: np.ndarray, rects: Sequence[Rect]
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Closest point on ∂F per query point → (q, distance, outward normal
+    of the winning rect)."""
+    p = np.asarray(points, np.float64).reshape(-1, 3)
+    n = p.shape[0]
+    best_d2 = np.full(n, np.inf)
+    best_q = np.zeros((n, 3))
+    best_n = np.zeros((n, 3))
+    for r in rects:
+        a0, a1 = _other_axes(r.axis)
+        q = p.copy()
+        q[:, r.axis] = r.coord
+        q[:, a0] = np.clip(p[:, a0], r.lo[0], r.hi[0])
+        q[:, a1] = np.clip(p[:, a1], r.lo[1], r.hi[1])
+        d2 = ((q - p) ** 2).sum(axis=-1)
+        upd = d2 < best_d2
+        best_d2 = np.where(upd, d2, best_d2)
+        best_q[upd] = q[upd]
+        normal = np.zeros(3)
+        normal[r.axis] = r.normal
+        best_n[upd] = normal
+    return best_q, np.sqrt(best_d2), best_n
+
+
+def office_vf(points: np.ndarray, rects: Sequence[Rect]) -> np.ndarray:
+    """Analytic VF oracle: unit vector from p to the closest point on ∂F
+    (flips sign across every surface — what VF-NeRF's density detects).
+    Exactly on a surface the limit from the free side (−outward normal)
+    is used."""
+    p = np.asarray(points, np.float64)
+    flat = p.reshape(-1, 3)
+    q, d, nrm = rect_closest_points(flat, rects)
+    v = np.where(d[:, None] > 1e-9,
+                 (q - flat) / np.maximum(d[:, None], 1e-12), -nrm)
+    return v.reshape(p.shape).astype(np.float32)
+
+
+def office_color(points: np.ndarray, groups: np.ndarray) -> np.ndarray:
+    """Textured appearance: the smooth base field plus a higher-frequency
+    detail octave and a per-object tint (occluder boundaries are visible in
+    RGB, not just depth)."""
+    p = np.asarray(points, np.float64)
+    base = wall_color(p).astype(np.float64)
+    detail = (0.5 + 0.5 * np.sin(6.1 * p[..., 0] + 2.2 * p[..., 1])
+              * np.sin(4.7 * p[..., 2] + 1.3 * p[..., 0]))
+    c = base * (0.7 + 0.3 * detail[..., None])
+    tints = np.array([[1.00, 1.00, 1.00],    # walls
+                      [0.85, 0.75, 0.65],    # floor
+                      [0.95, 0.95, 1.05],    # ceiling
+                      [1.05, 0.90, 0.80],    # corner block
+                      [0.70, 0.85, 1.10],    # column
+                      [1.10, 0.80, 0.95],    # thin wall
+                      [0.80, 1.10, 0.80]])   # desk
+    c = c * tints[np.asarray(groups, np.int32)]
+    return np.clip(c, 0.0, 1.0).astype(np.float32)
+
+
+def rects_to_mesh(rects: Sequence[Rect]) -> Tuple[np.ndarray, np.ndarray]:
+    """∂F as a triangle mesh (two tris per rect, wound so the face normal
+    is the rect's outward normal)."""
+    verts, faces = [], []
+    for r in rects:
+        a0, a1 = _other_axes(r.axis)
+        corners2d = [(r.lo[0], r.lo[1]), (r.hi[0], r.lo[1]),
+                     (r.hi[0], r.hi[1]), (r.lo[0], r.hi[1])]
+        base = len(verts)
+        for u, v in corners2d:
+            c = np.zeros(3, np.float32)
+            c[r.axis] = r.coord
+            c[a0], c[a1] = u, v
+            verts.append(c)
+        # CCW in (a0, a1) has normal +axis for axis 0/2 and -axis for 1.
+        cross_sign = -1.0 if r.axis == 1 else 1.0
+        if cross_sign == r.normal:
+            faces += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+        else:
+            faces += [[base, base + 2, base + 1], [base, base + 3, base + 2]]
+    return (np.asarray(verts, np.float32).reshape(-1, 3),
+            np.asarray(faces, np.int32))
+
+
+class SyntheticOfficeDataset(SyntheticBoxDataset):
+    """Non-convex L-shaped room with occluders — hard-regime oracle scene.
+
+    Everything geometric is overridden to trace the office's exact ∂F.
+    """
+
+    def __init__(self,
+                 config: Optional[DatasetConfig] = None,
+                 n_images: int = 24,
+                 image_size: Tuple[int, int] = (32, 48),
+                 half_size: float = 2.0,
+                 pixels_per_batch: int = 512,
+                 shuffle_views: bool = True,
+                 all_pixels: bool = False,
+                 seed: int = 0,
+                 pitch_range: float = 1.1,
+                 extra_down_views: int = 0) -> None:
+        if config is not None:
+            pixels_per_batch = config.pixels_per_batch
+            shuffle_views = config.shuffle_views
+            all_pixels = config.all_pixels
+        BaseDataset.__init__(self, n_images=n_images + extra_down_views,
+                             shuffle_views=shuffle_views,
+                             pixels_per_batch=pixels_per_batch,
+                             all_pixels=all_pixels)
+        self.half_size = half_size
+        self.pitch_range = pitch_range
+        self.extra_down_views = extra_down_views
+        self.image_size = image_size
+        self.rects, self.solids = office_layout(half_size)
+        h, w = image_size
+
+        k = np.eye(4, dtype=np.float32)
+        k[0, 0] = k[1, 1] = 0.6 * w
+        k[0, 2], k[1, 2] = w / 2.0, h / 2.0
+        self.intrinsics = k
+
+        rng = np.random.RandomState(seed)
+        self.poses = self._make_poses(rng)
+        self.rgb_images, self.depth_images = self._render_gt()
+        self.max_depth = float(self.depth_images.max())
+        self.scale = half_size * 1.1
+
+    def _make_poses(self, rng: np.random.RandomState) -> np.ndarray:
+        """Cameras rejection-sampled in free space (≥ clearance from ∂F),
+        looking in evenly-spread yaws with a STRATIFIED pitch fan.
+
+        Pitch stratification (round-5 rig fix, VERDICT r4): iid
+        ``uniform(±pitch_range)`` pitch draws left the seed-0 rig with no
+        camera pitching below −26.5°, so only 14% of floor GT area was
+        ever observed and the headline recall inherited a rig blind spot
+        rather than a method property. Pitch is now sampled one-per-stratum
+        over ``[-pitch_range, pitch_range]`` (jittered within strata, like
+        yaw) and assigned to cameras through a seeded permutation so pitch
+        stays decorrelated from the stratified yaw — every seed covers
+        floor and ceiling views by construction.
+
+        ``extra_down_views`` appends task views over the desk (round-5
+        desk study): the desk decomposition (`tools/desk_decompose.py`)
+        measured that the desk TOP fails because only 2 of 24 ring views
+        graze it obliquely — the honest fix is views that actually look
+        down at it. Task cameras are rejection-sampled in free space in
+        the upper half of the room near the desk, aimed at jittered
+        targets on the desk's top face. With ``extra_down_views=0`` the
+        RNG stream and poses are bit-identical to the ring-only rig."""
+        clearance = 0.35 * self.half_size / 2.0
+        n_ring = self.n_images - self.extra_down_views
+        positions = []
+        while len(positions) < n_ring:
+            cand = rng.uniform(-1.0, 1.0, 3)
+            cand *= np.array([1.0, 1.0, 0.55]) * (self.half_size - clearance)
+            if not point_in_free_space(cand[None], self.half_size,
+                                       self.solids)[0]:
+                continue
+            _, d, _ = rect_closest_points(cand[None], self.rects)
+            if d[0] < clearance:
+                continue
+            positions.append(cand.astype(np.float32))
+
+        pitch_order = rng.permutation(n_ring)
+        poses = []
+        for i, pos in enumerate(positions):
+            yaw = 2 * np.pi * i / n_ring + rng.uniform(-0.2, 0.2)
+            pitch = self.pitch_range * (
+                -1.0 + 2.0 * (pitch_order[i] + rng.uniform())
+                / n_ring)
+            forward = np.array([np.cos(pitch) * np.cos(yaw),
+                                np.cos(pitch) * np.sin(yaw),
+                                np.sin(pitch)], np.float32)
+            up = np.array([0, 0, 1], np.float32)
+            right = np.cross(forward, up)
+            right /= np.linalg.norm(right)
+            down = np.cross(forward, right)
+            rot = np.stack([right, down, forward], axis=1)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = rot
+            pose[:3, 3] = pos
+            poses.append(pose)
+
+        # Desk task views: above the desk's z-band, laterally within a
+        # widened desk footprint, looking at the top face.
+        desk_lo, desk_hi = self.solids[-1]
+        pad = 0.45 * self.half_size / 2.0
+        while len(poses) < self.n_images:
+            cand = np.array([
+                rng.uniform(desk_lo[0] - pad, desk_hi[0] + pad),
+                rng.uniform(desk_lo[1] - pad, desk_hi[1] + pad),
+                rng.uniform(0.0, 0.55 * (self.half_size - clearance))],
+                np.float64)
+            if not point_in_free_space(cand[None], self.half_size,
+                                       self.solids)[0]:
+                continue
+            _, d, _ = rect_closest_points(cand[None], self.rects)
+            if d[0] < clearance:
+                continue
+            target = np.array([
+                rng.uniform(desk_lo[0], desk_hi[0]),
+                rng.uniform(desk_lo[1], desk_hi[1]),
+                desk_hi[2]], np.float64)
+            poses.append(self._look_at_pose(cand.astype(np.float32),
+                                            target.astype(np.float32)))
+        return np.stack(poses)
+
+    @staticmethod
+    def _look_at_pose(pos: np.ndarray, target: np.ndarray) -> np.ndarray:
+        forward = np.asarray(target, np.float32) - np.asarray(pos,
+                                                              np.float32)
+        forward = forward / np.linalg.norm(forward)
+        up = np.array([0, 0, 1], np.float32)
+        right = np.cross(forward, up)
+        nr = np.linalg.norm(right)
+        if nr < 1e-6:                       # looking straight up/down
+            right = np.cross(forward, np.array([1, 0, 0], np.float32))
+            nr = np.linalg.norm(right)
+        right = right / nr
+        down = np.cross(forward, right)
+        rot = np.stack([right, down, forward], axis=1)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = rot
+        pose[:3, 3] = pos
+        return pose
+
+    def _render_gt(self) -> Tuple[np.ndarray, np.ndarray]:
+        h, w = self.image_size
+        uv = pixel_grid(h, w)
+        fx, fy = self.intrinsics[0, 0], self.intrinsics[1, 1]
+        cx, cy = self.intrinsics[0, 2], self.intrinsics[1, 2]
+        x_cam = (uv[:, 0] - cx) / fx
+        y_cam = (uv[:, 1] - cy) / fy
+        dirs_cam = np.stack([x_cam, y_cam, np.ones_like(x_cam)], axis=-1)
+
+        rgbs, depths = [], []
+        for pose in self.poses:
+            dirs = dirs_cam @ pose[:3, :3].T
+            origin = pose[:3, 3]
+            t, group = trace_rects(origin[None, :], dirs, self.rects)
+            assert np.isfinite(t).all(), "ray escaped ∂F (authoring bug)"
+            hits = origin[None, :] + t[:, None] * dirs
+            rgbs.append(office_color(hits, group))
+            depths.append(t[:, None].astype(np.float32))
+        return np.asarray(rgbs, np.float32), np.asarray(depths, np.float32)
+
+    def analytic_vf(self, points: np.ndarray) -> np.ndarray:
+        return office_vf(points, self.rects)
+
+    def gt_mesh(self) -> Tuple[np.ndarray, np.ndarray]:
+        return rects_to_mesh(self.rects)

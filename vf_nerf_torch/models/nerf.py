@@ -7,7 +7,13 @@ schedule, one ``torch.Generator`` on its device seeded from ``seed`` for the
 render's and the training step's uniform draws, the fine-sample count, the
 (annealed) window weights and near/far. Its weights are initialized on the
 CPU from ``seed``, so a seed gives the same weights on every device.
-Checkpoints, the runner and the mesh surfaces are later slices.
+
+Checkpoints (``save`` / ``load``) are ``torch.save`` blobs in the
+reference's ``.pth`` layout (``vf_net``, ``rendering_net``, ``density``,
+``epoch``) plus the optimizer's moments and count and the fine-sample count;
+``load_reference_pth`` reads a reference checkpoint and ``load_vf_init`` the
+VF-init ``.pkl`` that either package writes. The mesh surfaces and the joint
+stage's ``get_colors`` / ``get_weights_and_color`` are later slices.
 
 The optimizer (``make_optimizer``) is the JAX package's: clip by global
 norm, Adam, and an exponential learning-rate decay per step. With fine
@@ -19,28 +25,22 @@ coefficient squared, and Adam runs two sub-steps on them per step.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import pickle
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from vf_nerf_torch.config.schema import SchedulerConfig, VFNerfConfig
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
-                                           render_rays)
+                                           param_groups, render_rays)
 from vf_nerf_torch.ops.annealing import annealed_window_weights
-
+from vf_nerf_torch.ops.density import get_beta, get_mean, get_scale
+from vf_nerf_torch.utils import checkpoint as ckpt_io
+from vf_nerf_torch.utils.weights import (load_mlp_variables,
+                                         load_reference_state)
 
 Groups = Dict[str, List[torch.Tensor]]
-
-
-def param_groups(modules: VFNerfModules) -> Dict[str, List[nn.Parameter]]:
-    """The trainable tensors by the JAX params tree's top-level keys: the
-    VF net (its Linear and BatchNorm parameters), the colour net, and the
-    density scalars."""
-    return {"vf": list(modules.vf.parameters()),
-            "render": list(modules.render.parameters()),
-            "density": list(modules.density.parameters())}
 
 
 def _f32_pow(base: float, exponent: int) -> float:
@@ -75,9 +75,10 @@ class Optimizer:
     coefficient ``min(c / (norm + 1e-6), 1)`` with the ``"vf"`` group
     counted twice in the norm and scaled by the coefficient squared, and
     two Adam sub-steps (counts 2t − 1 and 2t) on the ``"vf"`` group.
+    ``clip_norm=None`` clips nothing (``optax.adam`` with that schedule).
     """
 
-    def __init__(self, schedule: ExponentialDecay, clip_norm: float,
+    def __init__(self, schedule: ExponentialDecay, clip_norm: Optional[float],
                  weight_decay: float = 0.0, duplicate_vf: bool = False,
                  b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8) -> None:
@@ -98,13 +99,28 @@ class Optimizer:
         self.count = 0
         return self
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The moments (group → tensors, live references) and the count."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy saved moments into this optimizer's tensors (same groups and
+        shapes) and take the count."""
+        for key in ("mu", "nu"):
+            for group, tensors in getattr(self, key).items():
+                for dst, src in zip(tensors, state[key][group], strict=True):
+                    dst.copy_(src)
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, params: Groups, grads: Groups) -> None:
         """One update of ``params`` from ``grads`` (same groups, same
         order)."""
         lr = self.schedule(self.count)
         t = self.count + 1
-        grads = self._clip(grads)
+        if self.clip_norm is not None:
+            grads = self._clip(grads)
         if self.weight_decay > 0:
             grads = {k: [g + self.weight_decay * p
                          for g, p in zip(grads[k], params[k])]
@@ -226,12 +242,12 @@ class VectorFieldNerf:
             train=self.modules.training,
             white_background=white_background)
 
-    def _tensor(self, x) -> torch.Tensor:
+    def to_device(self, x) -> torch.Tensor:
         """f32 on the facade's device. Host data goes through pinned memory
         with an asynchronous copy: a copy from pageable memory would wait
         for the stream and stall the previous render's queue."""
-        if isinstance(x, torch.Tensor) and x.device == self.device:
-            return x.to(torch.float32)
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            return x.to(self.device, torch.float32)
         t = torch.as_tensor(np.asarray(x, np.float32))
         if self.device.type != "cuda":
             return t.to(self.device)
@@ -244,9 +260,9 @@ class VectorFieldNerf:
         the dict of ``render_rays``."""
         self.update_annealing(epoch)
         return render_rays(
-            self.modules, self._tensor(pixels), self._tensor(pose),
-            self._tensor(intrinsics), self.near, self.far,
-            self._tensor(self.window_weights),
+            self.modules, self.to_device(pixels), self.to_device(pose),
+            self.to_device(intrinsics), self.near, self.far,
+            self.to_device(self.window_weights),
             self.render_statics(white_background=white),
             generator=self.generator)
 
@@ -260,10 +276,10 @@ class VectorFieldNerf:
         facade's device."""
         self.update_annealing(epoch)
         statics = self.render_statics(white_background=white)
-        uv = self._tensor(pixels)
-        pose44 = self._tensor(pose).reshape(4, 4)
-        intr44 = self._tensor(intrinsics).reshape(4, 4)
-        weights = self._tensor(self.window_weights)
+        uv = self.to_device(pixels)
+        pose44 = self.to_device(pose).reshape(4, 4)
+        intr44 = self.to_device(intrinsics).reshape(4, 4)
+        weights = self.to_device(self.window_weights)
         rgbs, depths = [], []
         for chunk in torch.split(uv, split_size):
             n = chunk.shape[0]
@@ -273,3 +289,93 @@ class VectorFieldNerf:
             rgbs.append(out["rgb"])
             depths.append(out["depth"])
         return torch.cat(rgbs), torch.cat(depths)
+
+    @torch.no_grad()
+    def get_vector_field(self, points, chunk: int = 1 << 17
+                         ) -> torch.Tensor:
+        """The raw field (N, 3) at ``points`` (N, 3) through the BN-folded VF
+        net, one fused-MLP launch per ``chunk`` points (reference
+        ``get_vector_field``, ``vector_field_nerf.py:380-403``)."""
+        pts = self.to_device(points).reshape(-1, 3)
+        vf_w = self.modules.vf.folded_weights()
+        return torch.cat([self.modules.vf_apply_folded(vf_w, part)[:, :3]
+                          for part in torch.split(pts, chunk)])
+
+    # ------------------------------------------------------------- logging
+    @torch.no_grad()
+    def density_scalar_tensors(self) -> Dict[str, torch.Tensor]:
+        """The clamped density scalars β, scale and mean as 0-d tensors on
+        the device (the runner reads them with the epoch's metric sums)."""
+        d = self.modules.density.params()
+        dc = self.config.density_config
+        return {"beta": get_beta(d, tuple(dc.beta_bounds)),
+                "scale": get_scale(d, dc.scale_min),
+                "mean": get_mean(d, tuple(dc.mean_bounds))}
+
+    def density_scalars(self) -> Dict[str, float]:
+        """The clamped density scalars, in one read from the device."""
+        scalars = self.density_scalar_tensors()
+        values = torch.stack(list(scalars.values())).cpu().tolist()
+        return dict(zip(scalars, values))
+
+    def host_lr(self, step: int) -> float:
+        """The learning rate at optimizer step ``step`` (float32, as JAX)."""
+        return self.lr_schedule(step)
+
+    def current_lr(self) -> float:
+        return self.host_lr(self.step)
+
+    def reset_scheduler(self, num_steps: Optional[int] = None) -> None:
+        """A fresh optimizer and schedule over ``num_steps`` decay steps
+        (reference ``reset_scheduler``, ``vector_field_nerf.py:115-125``)."""
+        self.optimizer, self.lr_schedule = make_optimizer(
+            self.config.scheduler_config, num_steps,
+            duplicate_vf=self.duplicate_vf)
+        self.optimizer.init(param_groups(self.modules))
+
+
+    # ---------------------------------------------------------- checkpoint
+    def _ckpt_state(self, epoch: int) -> Dict[str, Any]:
+        return {"vf_net": self.modules.vf.state_dict(),
+                "rendering_net": self.modules.render.state_dict(),
+                "density": self.modules.density.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "epoch": epoch,
+                "fine_n_samples": self.fine_n_samples}
+
+    def save(self, epoch: int, path_dir: str) -> str:
+        """Write ``{epoch}.ckpt`` and ``latest.ckpt`` in ``path_dir``
+        (reference ``save``, ``vector_field_nerf.py:196-214``)."""
+        return ckpt_io.save_checkpoint(path_dir, epoch,
+                                       self._ckpt_state(epoch))
+
+    def load(self, path: str) -> int:
+        """Restore the modules, the optimizer and the fine-sample count from
+        a ``save`` file; returns the saved epoch + 1 (reference ``load``,
+        ``vector_field_nerf.py:162-194``)."""
+        blob = ckpt_io.load_checkpoint(path, self.device)
+        self.modules.vf.load_state_dict(blob["vf_net"])
+        self.modules.render.load_state_dict(blob["rendering_net"])
+        self.modules.density.load_state_dict(blob["density"])
+        self.optimizer.load_state_dict(blob["optimizer"])
+        self.fine_n_samples = int(blob["fine_n_samples"])
+        return int(blob["epoch"]) + 1
+
+    def load_reference_pth(self, path: str) -> int:
+        """A reference checkpoint's network and density weights (the
+        optimizer starts afresh); returns its epoch + 1."""
+        epoch = load_reference_state(self.modules, path)
+        self.optimizer.init(param_groups(self.modules))
+        return epoch
+
+    def load_vf_init(self, path: str) -> None:
+        """VF-init weights from a ``.pkl`` of ``train/vf_init.py`` (either
+        package writes the same layout) into the VF net only; the optimizer
+        starts afresh, as in the JAX package (reference
+        ``VectorFieldNetwork.load_init``, ``vector_field_network.py:109-138``).
+        Unpickles the file: load only files this project wrote."""
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        load_mlp_variables(self.modules.vf, blob["params"],
+                           blob.get("batch_stats") or {})
+        self.optimizer.init(param_groups(self.modules))

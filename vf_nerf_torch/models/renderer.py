@@ -33,7 +33,7 @@ compute, weight norm.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -132,6 +132,15 @@ class VFNerfModules(nn.Module):
         x = self.render.inputs(points, normals, view_dirs, feats)
         return fused_mlp(rn_weights, x.contiguous(), skip_at=None,
                          final_act="sigmoid")
+
+
+def param_groups(modules: VFNerfModules) -> Dict[str, List[nn.Parameter]]:
+    """The trainable tensors by the JAX params tree's top-level keys: the
+    VF net (its Linear and BatchNorm parameters), the colour net, and the
+    density scalars."""
+    return {"vf": list(modules.vf.parameters()),
+            "render": list(modules.render.parameters()),
+            "density": list(modules.density.parameters())}
 
 
 def _check_statics(statics: RenderStatics) -> None:

@@ -9,6 +9,9 @@
   opt_state, step) into a ``VectorFieldNerf`` and its optimizer: the Adam
   moments ``mu`` / ``nu`` leaf by leaf and the count, from the plain
   optax chain's ``ScaleByAdamState`` or the duplicate-VF optimizer's dict.
+- ``export_jax_vf_variables`` / ``load_mlp_variables``: one net's
+  parameters and BatchNorm statistics as numpy under the flax names and
+  back (the VF-init ``.pkl`` of both packages).
 - ``load_reference_state``: a reference ``.pth`` blob (keys ``vf_net``,
   ``rendering_net``, ``density``; reference
   ``models/nerf/vector_field_nerf.py:196-214``). The port's modules use the
@@ -26,8 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vf_nerf_torch.models.nerf import param_groups
-from vf_nerf_torch.models.renderer import VFNerfModules
+from vf_nerf_torch.models.renderer import VFNerfModules, param_groups
 
 
 def _modules(model_or_modules) -> VFNerfModules:
@@ -41,8 +43,10 @@ def _copy(dst: torch.Tensor, src: Any) -> None:
         dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
 
-def _load_mlp(net: nn.Module, params: Mapping[str, Any],
-              batch_stats: Mapping[str, Any]) -> None:
+def load_mlp_variables(net: nn.Module, params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]) -> None:
+    """One net's flax variables (``layer_i.{Dense_0,BatchNorm_0}``) into
+    ``net``."""
     for i, layer in enumerate(net.layers):
         scope = params[f"layer_{i}"]
         lin = layer[0] if isinstance(layer, nn.Sequential) else layer
@@ -57,13 +61,39 @@ def _load_mlp(net: nn.Module, params: Mapping[str, Any],
             _copy(bn.running_var, stats["var"])
 
 
+def export_jax_vf_variables(net: nn.Module
+                            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``load_mlp_variables``: (params, batch_stats) of one
+    net as numpy trees under the flax names, Dense kernels (in, out)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i, layer in enumerate(net.layers):
+        lin = layer[0] if isinstance(layer, nn.Sequential) else layer
+        scope = {"Dense_0": {"kernel": _numpy(lin.weight).T.copy(),
+                             "bias": _numpy(lin.bias)}}
+        if isinstance(layer, nn.Sequential):
+            bn = layer[1]
+            scope["BatchNorm_0"] = {"scale": _numpy(bn.weight),
+                                    "bias": _numpy(bn.bias)}
+            stats[f"layer_{i}"] = {"BatchNorm_0": {
+                "mean": _numpy(bn.running_mean),
+                "var": _numpy(bn.running_var)}}
+        params[f"layer_{i}"] = scope
+    return params, stats
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
 def load_jax_variables(model_or_modules, variables: Mapping[str, Any]) -> None:
     """Copy the JAX package's variables into a ``VectorFieldNerf`` or
     ``VFNerfModules``, on whatever device the modules live."""
     modules = _modules(model_or_modules)
     params, stats = variables["params"], variables.get("batch_stats", {})
-    _load_mlp(modules.vf, params["vf"], stats.get("vf") or {})
-    _load_mlp(modules.render, params["render"], stats.get("render") or {})
+    load_mlp_variables(modules.vf, params["vf"], stats.get("vf") or {})
+    load_mlp_variables(modules.render, params["render"],
+                       stats.get("render") or {})
     density = params["density"]
     for name in ("beta", "scale", "mean"):
         value = density[name] if isinstance(density, Mapping) \
@@ -138,6 +168,20 @@ def _strip_module_prefix(state: Mapping[str, Any]) -> Dict[str, Any]:
             for k, v in state.items()}
 
 
+def load_reference_net(net: nn.Module, state: Mapping[str, Any],
+                       what: str = "net") -> None:
+    """One net's reference state dict (``layers.*`` keys, an optional
+    ``module.`` prefix, ``num_batches_tracked`` ignored) into ``net``;
+    raises ``KeyError`` naming ``what`` if the keys do not match."""
+    state = _strip_module_prefix(state)
+    state = {k: v for k, v in state.items()
+             if not k.endswith("num_batches_tracked")}
+    missing, unexpected = net.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"{what}: missing {missing}, unexpected {unexpected}")
+
+
 def load_reference_state(model_or_modules,
                          blob: Union[str, Mapping[str, Any]]) -> int:
     """Load a reference checkpoint (a path or its loaded dict) into the
@@ -145,16 +189,8 @@ def load_reference_state(model_or_modules,
     if isinstance(blob, str):
         blob = torch.load(blob, map_location="cpu")
     modules = _modules(model_or_modules)
-    for net, key in ((modules.vf, "vf_net"),
-                     (modules.render, "rendering_net")):
-        state = _strip_module_prefix(blob[key])
-        state = {k: v for k, v in state.items()
-                 if not k.endswith("num_batches_tracked")}
-        missing, unexpected = net.load_state_dict(state, strict=False)
-        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-        if missing or unexpected:
-            raise KeyError(f"{key}: missing {missing}, "
-                           f"unexpected {unexpected}")
+    load_reference_net(modules.vf, blob["vf_net"], "vf_net")
+    load_reference_net(modules.render, blob["rendering_net"], "rendering_net")
     density = _strip_module_prefix(blob["density"])
     for name in ("beta", "scale", "mean"):
         _copy(getattr(modules.density, name),
