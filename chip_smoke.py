@@ -41,14 +41,19 @@ Phases, each printing one JSON line:
    activations equal to the plain forward's) and ``FusedMLP``'s gradients
    against autograd through ``mlp_reference`` (1e-4·max|g|, the upstream
    gradient zeroed on the points whose ReLU masks differ) for the fine VF
-   net, the colour net and the shell and
-   ball VF nets, with the save mode's time, the cuBLAS backward products'
-   and the plain forward + backward's; the ray-march backward kernel
-   against autograd through ``ray_march_reference`` at (1024, 200),
-   ``n_valid`` 130 and 200, a white background, a weights gradient and raw
-   density parameters at their clamps (rtol 1e-4, atol 1e-5·max(1,
-   max|g|)), one CUDA kernel per call, its device time, the plain
-   version's and the byte bound;
+   net, the colour net and the shell and ball VF nets; per case the save
+   mode's time beside the no-save launch's and the cuBLAS chain that keeps
+   every hidden output (``library_ms``), each schedule's save-mode time
+   (``ms_tile128``, ``ms_tile64``), the chosen schedule's blocks and rounds
+   on the card's SMs, the saved bytes and their time at the HBM rate, the
+   cuBLAS backward products' and the plain forward + backward's time; the
+   four launches must beat the chains' total; the ray-march backward
+   kernel against autograd through ``ray_march_reference`` at (1024, 200)
+   with ``n_valid`` 130 and 200, a white background, a weights gradient and
+   raw density parameters at their clamps, and at (1024, 26), (1024, 130)
+   and (256, 1024) (rtol 1e-4, atol 1e-5·max(1, max|g|)), one CUDA kernel
+   per call, its device time and byte bound per case, the plain version's
+   time;
 9. train_step: the shipped conf's training step through
    ``parallel/train_step.py::make_train_step`` (1024 rays, perturb on,
    static fine growth: 100 coarse + 100 padded fine samples, 30 live,
@@ -121,7 +126,9 @@ from vf_nerf_torch.models.nerf import VectorFieldNerf
 from vf_nerf_torch.models.renderer import draw_uniforms, render_rays
 from vf_nerf_torch.ops.density import DensityParams
 from vf_nerf_torch.ops.embedding import positional_encoding
-from vf_nerf_torch.ops.fused_mlp import (fused_mlp, mlp_backward_reference,
+from vf_nerf_torch.ops.fused_mlp import (_launch, _sm_count, acts_shape,
+                                         blocks_of_128, fused_mlp,
+                                         hidden_views, mlp_backward_reference,
                                          mlp_reference)
 from vf_nerf_torch.ops.ray_march import (MarchStatics, fused_ray_march,
                                          ray_march_backward,
@@ -604,7 +611,8 @@ def max_rel(a, b) -> float:
 
 
 def hidden_forward(weights, x, skip_at):
-    """The plain forward's hidden activations, layer after layer."""
+    """The plain forward's hidden activations, layer after layer, side by
+    side (unpadded)."""
     h, hidden = x, []
     for i, (w, b) in enumerate(weights[:-1]):
         if i == skip_at:
@@ -628,7 +636,8 @@ def hold_fused_mlp_training(name, weights, x, skip_at, act, gen) -> dict:
     with torch.no_grad():
         plain_out = fused_mlp(weights, x, skip_at, act)
     out = fused_mlp(leaves, x_leaf, skip_at, act)
-    acts = out.grad_fn.saved_tensors[1]
+    saved = out.grad_fn.saved_tensors[1]
+    acts = torch.cat(hidden_views(saved, weights), 1)
     torch.cuda.synchronize()
     check(torch.equal(out.detach(), plain_out),
           f"fused_mlp {name}: the save-mode output differs from the no-save "
@@ -654,7 +663,7 @@ def hold_fused_mlp_training(name, weights, x, skip_at, act, gen) -> dict:
           f"ReLU masks agree on {agree} of the points")
     return dict(max_rel_grad_err=err, relu_mask_agreement=agree,
                 acts_max_rel_err=acts_err, leaves=leaves, x_leaf=x_leaf,
-                inputs=inputs, acts=acts, y=plain_out, dy=dy)
+                inputs=inputs, acts=saved, y=plain_out, dy=dy)
 
 
 def train_statics(model):
@@ -677,6 +686,7 @@ def phase_train_kernels(model, dev):
     vf_w, rn_w = model.modules.folded_weights()
     skip = model.modules.vf.skip_at
     gen = torch.Generator(device=dev).manual_seed(2)
+    sms = _sm_count(dev.index or 0)
     mlp_rows, totals = [], dict(ms=0.0, ms_no_save=0.0, backward_ms=0.0,
                                 plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                                 backward_bound_ms=0.0, max_abs_err=0.0)
@@ -696,19 +706,29 @@ def phase_train_kernels(model, dev):
         case = hold_fused_mlp_training(name, weights, x, skip_at, act, gen)
         leaves, x_leaf, inputs, acts, y, dy = (
             case[k] for k in ("leaves", "x_leaf", "inputs", "acts", "y", "dy"))
-        # Times: the save-mode launch, the no-save launch, the backward's
-        # cuBLAS products from the saved activations, and the plain
-        # forward + backward by autograd.
+        # Times: the save-mode launch (and each schedule's, forced), the
+        # no-save launch, the cuBLAS chain that keeps every hidden output,
+        # the backward's cuBLAS products from the saved activations, and
+        # the plain forward + backward by autograd.
         need_dx = act == "sigmoid"
         err = case["max_rel_grad_err"]
+        blocks128 = blocks_of_128(n, sms)
+        blocks64 = -(-max(0, n - 128 * blocks128) // 64)
         row = dict(
             case=name, points=n, max_rel_grad_err=err,
             relu_mask_agreement=case["relu_mask_agreement"],
-            acts_max_rel_err=case["acts_max_rel_err"],
+            acts_max_rel_err=case["acts_max_rel_err"], sms=sms,
+            blocks128=blocks128, blocks64=blocks64,
+            rounds128=-(-blocks128 // sms), rounds64=-(-blocks64 // sms),
+            rounds_all128=-(-(-(-n // 128)) // sms),
             ms=cuda_ms(lambda: fused_mlp(leaves, x_leaf, skip_at, act),
                        iters=5),
+            **{f"ms_{label}": cuda_ms(lambda: _launch(
+                weights, x, skip_at, act, save=True, blocks128=b), iters=5)
+               for label, b in (("all128", -(-n // 128)), ("all64", 0))},
             ms_no_save=cuda_ms(lambda: fused_mlp(weights, x, skip_at, act),
                                iters=5),
+            save_bytes=4.0 * np.prod(acts_shape(weights, n)),
             backward_ms=cuda_ms(lambda: mlp_backward_reference(
                 weights, x, acts, y, dy, skip_at, act, need_dx=need_dx),
                 iters=5),
@@ -734,6 +754,13 @@ def phase_train_kernels(model, dev):
         row["backward_bound_ms"] = max(bwd_flop / PEAK_F32_FLOPS,
                                        bwd_bytes / PEAK_BYTES) * 1e3
         row["backward_tflops"] = bwd_flop / row["backward_ms"] / 1e9
+        row["save_byte_ms"] = row["save_bytes"] / PEAK_BYTES * 1e3
+        row["save_overhead_ms"] = row["ms"] - row["ms_no_save"]
+        # A 64-point split block's time over a 128-point block's, from the
+        # all-64 and all-128 launches' rounds.
+        row["split_block_cost"] = (row["ms_all64"] / -(-(-(-n // 64)) // sms)) \
+            / (row["ms_all128"] / row["rounds_all128"])
+        row["beats_library"] = row["ms"] <= row["library_ms"]
         mlp_rows.append(row)
         for k in ("ms", "ms_no_save", "backward_ms", "plain_ms",
                   "library_ms", "bound_ms", "backward_bound_ms"):
@@ -741,8 +768,12 @@ def phase_train_kernels(model, dev):
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
         del case, acts, leaves, x_leaf, inputs, y, dy
         torch.cuda.empty_cache()
+    check(totals["ms"] < totals["library_ms"],
+          f"fused_mlp save mode {totals['ms']} ms per step does not beat the "
+          f"cuBLAS chain's {totals['library_ms']} ms")
 
-    # The ray march's backward.
+    # The ray march's backward: the step's shape first (timed), then the
+    # other sample counts its paths give it.
     uniform = torch.full((11,), 1.0 / 11, device=dev)
     annealed = torch.tensor([0.01, -0.02, 0.05, 0.1, 0.15, 0.4, 0.12, 0.08,
                              0.04, 0.02, 0.01], device=dev)
@@ -750,22 +781,28 @@ def phase_train_kernels(model, dev):
     n_valid = statics.n_coarse + N_FINE_ACTIVE
     shipped = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0,
                    mean_bounds=(0.6, 1.0), cutoff=-0.5)
-    # (n_valid, taps, white, weights gradient, clamped scalars, th)
-    cases = [(n_valid, uniform, False, False, (0.5, 100.0, 0.7), -2.0),
-             (s_pad, uniform, False, False, (0.5, 100.0, 0.7), -2.0),
-             (n_valid, annealed, True, True, (0.5, 100.0, 0.7), -0.2),
-             (n_valid, uniform, False, True, (0.3, 1.0, 0.6), -0.2)]
+    # (rays, samples, n_valid, taps, white, weights gradient, clamped
+    #  scalars, th)
+    plain = (0.5, 100.0, 0.7)
+    cases = [(N_RAYS, s_pad, n_valid, uniform, False, False, plain, -2.0),
+             (N_RAYS, s_pad, s_pad, uniform, False, False, plain, -2.0),
+             (N_RAYS, s_pad, n_valid, annealed, True, True, plain, -0.2),
+             (N_RAYS, s_pad, n_valid, uniform, False, True, (0.3, 1.0, 0.6),
+              -0.2),
+             (N_RAYS, 26, 26, annealed, False, True, plain, -0.2),
+             (N_RAYS, n_valid, n_valid, uniform, False, False, plain, -2.0),
+             (256, 1024, 1024, annealed, True, True, plain, -0.2)]
     march_rows, timed = [], None
-    for live, taps, white, w_grad, scal, th in cases:
-        normals, dirs, z, rgb = march_inputs(N_RAYS, s_pad, 7, dev)
+    for rays, s, live, taps, white, w_grad, scal, th in cases:
+        normals, dirs, z, rgb = march_inputs(rays, s, 7, dev)
         bounds = dict(shipped, beta_bounds=(0.3, 1e9)) \
             if scal[0] == 0.3 else shipped
         st = MarchStatics(bounds["beta_bounds"], 1.0, (0.6, 1.0), -0.5, th,
                           True, white, live)
         scalars = torch.tensor(scal, device=dev)
-        g_rgb = torch.randn((N_RAYS, 3), generator=gen, device=dev)
-        g_depth = torch.randn((N_RAYS,), generator=gen, device=dev)
-        g_w = torch.randn((N_RAYS, s_pad), generator=gen, device=dev) \
+        g_rgb = torch.randn((rays, 3), generator=gen, device=dev)
+        g_depth = torch.randn((rays,), generator=gen, device=dev)
+        g_w = torch.randn((rays, s), generator=gen, device=dev) \
             if w_grad else None
         args = (normals, dirs, z, rgb, scalars, taps, st, g_rgb, g_depth, g_w)
         got = ray_march_backward(*args)
@@ -778,26 +815,28 @@ def phase_train_kernels(model, dev):
             errs[name] = float((a - b).abs().max())
             check(bool(torch.isfinite(a).all()) and
                   bool(torch.allclose(a, b, rtol=1e-4, atol=atol)),
-                  f"ray_march_backward n_valid={live} white={white} "
-                  f"weights_grad={w_grad} scalars={scal} {name}: max abs err "
-                  f"{errs[name]} (atol {atol})")
+                  f"ray_march_backward ({rays}, {s}) n_valid={live} "
+                  f"white={white} weights_grad={w_grad} scalars={scal} "
+                  f"{name}: max abs err {errs[name]} (atol {atol})")
         n_kernels, device_ms, names = kernels_per_call(
             lambda: ray_march_backward(*args), calls=20)
         check(n_kernels == 20, f"ray_march_backward: 20 calls enqueued "
               f"{n_kernels} kernels {names}")
-        row = dict(n_valid=live, samples=s_pad, white=white,
+        # Each input read once over the live samples (the padded ones from
+        # n_valid on reach no output), each output written once over all.
+        nbytes = 4.0 * (rays * live * (3 + 1 + 3 + (1 if w_grad else 0)) +
+                        rays * 3 + rays * 4 + taps.numel() + 3 +
+                        rays * s * 6 + rays * 3)
+        row = dict(rays=rays, samples=s, n_valid=live, white=white,
                    weights_grad=w_grad, scalars=scal, th=th,
-                   max_abs_err=errs, ms=device_ms)
+                   max_abs_err=errs, ms=device_ms, bytes=nbytes,
+                   bound_ms=nbytes / PEAK_BYTES * 1e3)
         if timed is None:
-            nbytes = 4.0 * (N_RAYS * s_pad * (3 + 1 + 3) + N_RAYS * 3 +
-                            N_RAYS * 4 + 11 + 3 +
-                            N_RAYS * s_pad * 6 + N_RAYS * 3)
             row.update(
                 wrapper_ms=cuda_ms(lambda: ray_march_backward(*args),
                                    iters=50),
                 plain_ms=cuda_ms(lambda: ray_march_backward_reference(*args),
-                                 iters=10),
-                bound_ms=nbytes / PEAK_BYTES * 1e3, bytes=nbytes)
+                                 iters=10))
             timed = row
         march_rows.append(row)
     emit({"phase": "train_kernels", "mlp": mlp_rows, "mlp_totals": totals,
@@ -957,7 +996,8 @@ def kernel_counts(fn) -> dict:
     """The port's kernels by name, all kernels and their device ms over one
     call of ``fn`` (``torch.profiler``), and the call's wall seconds."""
     events, seconds = cuda_events(fn)
-    counts = {name: sum(e.count for e in events if f"{name}(" in e.key)
+    counts = {name: sum(e.count for e in events
+                        if re.search(rf"\b{name}[<(]", e.key))
               for name in ("fused_mlp_kernel", "ray_march_kernel",
                            "ray_march_backward_kernel")}
     return dict(counts, device_ms=sum(e.self_device_time_total

@@ -28,8 +28,9 @@ from vf_nerf_tpu.ops import fused_mlp as jfused
 from vf_nerf_torch.config import parse_config
 from vf_nerf_torch.models.renderer import VFNerfModules
 from vf_nerf_torch.ops.embedding import positional_encoding
-from vf_nerf_torch.ops.fused_mlp import (fused_mlp, mlp_backward_reference,
-                                         mlp_reference)
+from vf_nerf_torch.ops.fused_mlp import (ACTS_PITCH, acts_shape, fused_mlp,
+                                         hidden_views, mlp_backward_reference,
+                                         mlp_reference, blocks_of_128)
 from vf_nerf_torch.utils.weights import (load_jax_variables,
                                          load_reference_state)
 
@@ -51,6 +52,19 @@ def _random_weights(skip_at, seed=1):
 
 def _torch_weights(weights):
     return [(torch.from_numpy(w), torch.from_numpy(b)) for w, b in weights]
+
+
+def _saved_acts(weights, x, skip_at, fill=0.0):
+    """The plain forward's hidden outputs in the kernel's save layout
+    (``acts_shape``), the columns past each layer's width set to ``fill``."""
+    acts = torch.full(acts_shape(weights, x.shape[0]), fill)
+    h = x
+    for i, (w, b) in enumerate(weights[:-1]):
+        if i == skip_at:
+            h = torch.cat([h, x], 1) / 2 ** 0.5
+        h = torch.relu(h @ w + b)
+        acts[i, :, :h.shape[1]] = h
+    return acts
 
 
 @pytest.mark.parametrize("n_points", [300, 331])
@@ -87,14 +101,8 @@ def test_backward_matches_jax_vjp(skip_at, final_act, need_dx):
     dy = np.random.RandomState(4).randn(*y.shape).astype(np.float32)
     ref_w, ref_x = vjp(jnp.asarray(dy))
     tw = _torch_weights(weights)
-    h, hidden = torch.from_numpy(x), []
-    for i, (w, b) in enumerate(tw[:-1]):
-        if i == skip_at:
-            h = torch.cat([h, torch.from_numpy(x)], 1) / 2 ** 0.5
-        h = torch.relu(h @ w + b)
-        hidden.append(h)
     grads, dx = mlp_backward_reference(
-        tw, torch.from_numpy(x), torch.cat(hidden, 1),
+        tw, torch.from_numpy(x), _saved_acts(tw, torch.from_numpy(x), skip_at),
         torch.from_numpy(np.asarray(y)), torch.from_numpy(dy), skip_at,
         final_act, need_dx=need_dx)
     for (gw, gb), (rw, rb) in zip(grads, ref_w):
@@ -102,6 +110,88 @@ def test_backward_matches_jax_vjp(skip_at, final_act, need_dx):
         np.testing.assert_allclose(gb.numpy(), np.asarray(rb), **TOL)
     if need_dx:
         np.testing.assert_allclose(dx.numpy(), np.asarray(ref_x), **TOL)
+
+
+def _ragged_weights(dims, skip_at, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(len(dims) - 1):
+        in_d = dims[i] + (dims[0] if skip_at == i else 0)
+        out.append(((rng.randn(in_d, dims[i + 1]) / np.sqrt(in_d)).astype(
+            np.float32), (rng.randn(dims[i + 1]) * 0.1).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("dims,skip_at,final_act", [
+    ([39, 32, 32, 21, 32, 35], 3, "tanh"),   # a ragged layer into the skip
+    ([45, 32, 30, 32, 3], None, "sigmoid"),
+])
+def test_padded_acts_give_jax_gradients(dims, skip_at, final_act, need_dx):
+    """The saved activations in the kernel's layer-major padded layout
+    (each layer's rows ``ACTS_PITCH`` wide; the columns past its width
+    filled with NaN here, so a read of them would show), cut by
+    ``hidden_views``, give ``mlp_backward_reference`` the gradients of
+    ``jax.grad`` through JAX ``mlp_reference`` to every kernel, bias and x
+    (rtol 1e-4 / atol 1e-5)."""
+    weights = _ragged_weights(dims, skip_at, seed=5)
+    tw = _torch_weights(weights)
+    x = np.random.RandomState(6).uniform(-1, 1, (83, dims[0])).astype(
+        np.float32)
+    dy = np.random.RandomState(7).randn(83, dims[-1]).astype(np.float32)
+    jw = [(jnp.asarray(w), jnp.asarray(b)) for w, b in weights]
+
+    def loss(ws, xx):
+        return jnp.sum(jfused.mlp_reference(ws, xx, skip_at, final_act) *
+                       jnp.asarray(dy))
+
+    ref_w, ref_x = jax.grad(loss, argnums=(0, 1))(jw, jnp.asarray(x))
+    xt = torch.from_numpy(x)
+    acts = _saved_acts(tw, xt, skip_at, fill=float("nan"))
+    y = mlp_reference(tw, xt, skip_at, final_act)
+    grads, dx = mlp_backward_reference(tw, xt, acts, y, torch.from_numpy(dy),
+                                       skip_at, final_act, need_dx=need_dx)
+    for (gw, gb), (rw, rb) in zip(grads, ref_w):
+        np.testing.assert_allclose(gw.numpy(), np.asarray(rw), **TOL)
+        np.testing.assert_allclose(gb.numpy(), np.asarray(rb), **TOL)
+    if need_dx:
+        np.testing.assert_allclose(dx.numpy(), np.asarray(ref_x), **TOL)
+
+
+def test_saved_activation_layout_of_the_shipped_nets():
+    """The VF net saves 8 hidden layers and the colour net 4, each as
+    (points, ACTS_PITCH) rows whose first columns are the layer's output
+    (the 217-wide layer's view is 217 wide); a tensor of another shape is
+    refused."""
+    def layers(dims):
+        return [(torch.zeros(a, b), torch.zeros(b))
+                for a, b in zip(dims[:-1], dims[1:])]
+
+    vf = layers([39, 256, 256, 256, 217, 256, 256, 256, 256, 259])
+    assert acts_shape(vf, 5) == (8, 5, ACTS_PITCH) == (8, 5, 300)
+    assert acts_shape(layers([289, 256, 256, 256, 256, 3]), 7) == (4, 7, 300)
+    acts = torch.arange(8 * 5 * 300, dtype=torch.float32).reshape(8, 5, 300)
+    views = hidden_views(acts, vf)
+    assert [tuple(v.shape) for v in views] == \
+        [(5, 256)] * 3 + [(5, 217)] + [(5, 256)] * 4
+    assert all(v.stride() == (300, 1) for v in views)
+    assert torch.equal(views[3], acts[3, :, :217])
+    with pytest.raises(ValueError, match="shape"):
+        hidden_views(torch.zeros(5, 2016), vf)
+
+
+@pytest.mark.parametrize("n_points,blocks128", [
+    (20480, 132),    # the step's shell / ball launch: 132 + 56 split blocks
+    (204800, 1584),  # the step's fine VF and colour launches: + 32 split
+    (102400, 792),   # the render's coarse launch: + 16 split
+    (133120, 1040),  # the render's fine and colour launches: 7.9 rounds
+    (8192, 0),       # VF init: 128 split blocks, one round
+    (1, 0),
+])
+def test_blocks_of_128_on_132_sms(n_points, blocks128):
+    """Whole rounds of 128-point blocks, the rest as 64-point split blocks
+    where that takes fewer estimated rounds."""
+    assert blocks_of_128(n_points, 132) == blocks128
 
 
 def _shipped_models(seed=0):

@@ -59,14 +59,39 @@
 //   * The input tile lands by cp.async; the skip's x columns are loaded with
 //     16 loads in flight per lane. Index loops run warps over rows and lanes
 //     over columns, so they need no integer division.
-//   * Activation-save mode (training): with `acts` set, each hidden layer's
-//     post-ReLU output is copied from the shared activation tile to `acts`
-//     (points x sum of hidden widths, f32, layer after layer), with
-//     coalesced row stores, after the barrier that completes the layer's
-//     write-back and before the next layer overwrites the tile. The copy
-//     runs from shared memory, never from the accumulator registers, so the
-//     kernel's register allocation is the same with and without it; with
-//     `acts` null (eval) it is skipped whole.
+//   * Activation-save mode (training, the kSave instantiation): each hidden
+//     layer's post-ReLU output goes from the shared activation tile to
+//     `acts` by the TMA's bulk asynchronous copy, issued by one thread after
+//     the barrier that completes the layer's write-back (the writers first
+//     fence the generic proxy against the async one). The tensor cores start
+//     the next layer while the copy drains; the thread waits on
+//     cp.async.bulk.wait_group.read only where the tile is next overwritten:
+//     before the next write-back's barrier, and before the skip layer scales
+//     the tile in place. `acts` is layer-major, (hidden layers, points,
+//     kActLd), so that a block's rows of one layer are one contiguous run in
+//     both places and the whole tile is ONE copy (the columns past the
+//     layer's width carry whatever the tile held there and are never read);
+//     per-row copies into a packed row layout would take 128 copy
+//     instructions a layer where this takes one. The copies carry an L2
+//     evict-first hint, so the ~2 GB a fine VF pass saves does not push the
+//     weight tiles, which every block reads, out of the L2. The copy runs
+//     from shared memory, never from the accumulator registers; the no-save
+//     instantiation (eval) has no copy code at all. What bounds the save
+//     mode now is the products, as in the no-save launch: the copies add
+//     ~0.3 ms to the fine VF launch's ~5.4 ms on an NVIDIA H100 80GB HBM3
+//     at 700 W (PERF.md section 6).
+//   * Schedules. With 128 points per block (one block per SM at a time) a
+//     grid whose last round is partial pays a whole round for it: the
+//     step's shell and ball launches (160 blocks on 132 SMs: 2 rounds for
+//     1.2 rounds of work), the fine VF and colour launches (1600 blocks:
+//     12 rounds and 16 blocks), the render's coarse launch (800 blocks).
+//     A 64-point split block (kSplit) splits each chunk's outputs between
+//     the warpgroups (warpgroup w computes half w, both read the same 64
+//     activation rows, each weight tile stage holds both halves), so it
+//     does half the k-steps and takes ~0.6 of a 128-point block's time.
+//     One launch mixes them: its first blocks128 blocks take 128 points,
+//     the rest 64, so the partial last round runs as cheaper split blocks;
+//     the wrapper picks blocks128 (ops/fused_mlp.py::blocks_of_128).
 // Clusters with a TMA multicast of each weight tile are later work.
 
 #include <cuda_runtime.h>
@@ -78,17 +103,27 @@ namespace {
 
 constexpr int kMaxLayers = 16;
 constexpr int kThreads = 256;               // two warpgroups
-constexpr int kTileP = 128;                 // points per block
 constexpr int kChunkN = 256;                // outputs held per pass
 constexpr int kHalfN = 128;                 // outputs per wgmma
 constexpr int kTileK = 16;                  // weight rows per tile: 2 k-steps
 constexpr int kStages = 4;                  // raw weight ring
 constexpr int kActLd = 300;                 // activation pitch, 12 mod 32
 constexpr int kMaxWidth = 296;              // widest input the pitch holds
-constexpr int kRaw = kTileK * kHalfN;       // floats per raw stage
-constexpr int kRowsPerWarp = kTileP / (kThreads / 32);
-constexpr size_t kSmemBytes =
-    (size_t)(kTileP * kActLd + kStages * kRaw + 2 * 2 * kRaw) * sizeof(float);
+constexpr int kRaw = kTileK * kHalfN;       // floats per raw half tile
+
+// Points per block: 128 (each warpgroup 64 points, both output halves in
+// turn), or 64 with the outputs split between the warpgroups.
+template <bool kSplit>
+__host__ __device__ constexpr int tile_p() { return kSplit ? 64 : 128; }
+
+// Dynamic shared memory: the activation tile, the raw ring (both halves per
+// stage when split) and the double-buffered hi / lo split tiles.
+template <bool kSplit>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return (size_t)(tile_p<kSplit>() * kActLd +
+                  (kSplit ? 2 : 1) * (kStages + 2 * 2) * kRaw) *
+         sizeof(float);
+}
 
 struct MlpDesc {
   const float* w[kMaxLayers];  // (K, N) row-major: in x out
@@ -98,8 +133,7 @@ struct MlpDesc {
   int n_layers;
   int skip_at;    // -1: no skip
   int final_act;  // 0 none, 1 tanh, 2 sigmoid
-  float* acts;    // null, or (points, acts_ld): hidden outputs, saved
-  int acts_ld;    // sum of the hidden widths
+  float* acts;    // save mode: (n_layers - 1, points, kActLd) hidden outputs
 };
 
 __device__ __forceinline__ int round_up(int a, int b) {
@@ -126,6 +160,38 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
                :: "r"(bar) : "memory");
+}
+
+// Bulk asynchronous copy (TMA, no tensor map) of `bytes` (a multiple of 16,
+// both addresses 16-byte aligned) from shared to global memory, in this
+// thread's current bulk group, marked first to leave the L2: the saved
+// activations are read again only by the backward, while the weight tiles
+// are read by every block.
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           int bytes) {
+  asm volatile(
+      "{\n .reg .b64 pol;\n"
+      " createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      " cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, pol;\n}\n"
+      :: "l"(__cvta_generic_to_global(dst)), "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk copies have read their shared source (it may be
+// overwritten); a thread with none returns at once.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory, read next by the async proxy
+// (wgmma, bulk copies).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -204,7 +270,9 @@ __device__ __forceinline__ int halves(int n, int n0) {
 
 // Position of the weight tile the producer fills next: layer, first output
 // of the chunk, half, first input row. Tiles go layer by layer, chunk by
-// chunk, half by half, k-step by k-step: the order the consumer walks them.
+// chunk, half by half (split: both halves in one tile), k-step by k-step:
+// the order the consumer walks them.
+template <bool kSplit>
 struct Cursor {
   int layer, n0, half, k0;
 
@@ -212,7 +280,7 @@ struct Cursor {
     k0 += kTileK;
     if (k0 < d.k[layer]) return;
     k0 = 0;
-    if (++half < halves(d.n[layer], n0)) return;
+    if (!kSplit && ++half < halves(d.n[layer], n0)) return;
     half = 0;
     n0 -= kChunkN;
     if (n0 < 0 && ++layer < d.n_layers) n0 = last_chunk(d.n[layer]);
@@ -220,29 +288,34 @@ struct Cursor {
 };
 
 // Every thread copies its share of the tile at `c` into the raw stage
-// (rows k, 128 output columns, zero outside (K, N)) and arrives on the
-// stage's barrier when its copies land. Warp w copies rows w and w + 8.
-__device__ __forceinline__ void issue_tile(const Cursor& c, const MlpDesc& d,
-                                           float* raw, uint32_t bar,
-                                           int warp, int lane) {
+// (rows k, 128 output columns per half, zero outside (K, N); split: both
+// halves, the second at raw + kRaw) and arrives on the stage's barrier when
+// its copies land. Warp w copies rows w and w + 8.
+template <bool kSplit>
+__device__ __forceinline__ void issue_tile(const Cursor<kSplit>& c,
+                                           const MlpDesc& d, float* raw,
+                                           uint32_t bar, int warp, int lane) {
   const float* __restrict__ W = d.w[c.layer];
   const int K = d.k[c.layer], N = d.n[c.layer];
-  const int n0 = c.n0 + c.half * kHalfN;
   const bool vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int gk = c.k0 + warp + 8 * rr;
-    const float* row = W + (size_t)gk * N + n0;
-    float* dst = raw + (warp + 8 * rr) * kHalfN;
-    if (vec) {
-      const int col = 4 * lane;
-      const bool ok = gk < K && n0 + col < N;
-      cp_async16(smem_u32(dst + col), ok ? row + col : W, ok ? 16 : 0);
-    } else {
+  for (int h = 0; h < (kSplit ? 2 : 1); ++h) {
+    const int n0 = c.n0 + (kSplit ? h : c.half) * kHalfN;
 #pragma unroll
-      for (int col = lane; col < kHalfN; col += 32) {
+    for (int rr = 0; rr < 2; ++rr) {
+      const int gk = c.k0 + warp + 8 * rr;
+      const float* row = W + (size_t)gk * N + n0;
+      float* dst = raw + h * kRaw + (warp + 8 * rr) * kHalfN;
+      if (vec) {
+        const int col = 4 * lane;
         const bool ok = gk < K && n0 + col < N;
-        cp_async4(smem_u32(dst + col), ok ? row + col : W, ok ? 4 : 0);
+        cp_async16(smem_u32(dst + col), ok ? row + col : W, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int col = lane; col < kHalfN; col += 32) {
+          const bool ok = gk < K && n0 + col < N;
+          cp_async4(smem_u32(dst + col), ok ? row + col : W, ok ? 4 : 0);
+        }
       }
     }
   }
@@ -276,13 +349,13 @@ __device__ __forceinline__ void split_tile(const float* raw, float* hi,
     *reinterpret_cast<float4*>(hi + at) = h;
     *reinterpret_cast<float4*>(lo + at) = l;
   }
-  // Generic-proxy writes, read next by wgmma (the async proxy).
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_shared();  // read next by wgmma
 }
 
 // The skip's x columns: act[p][c0 + j] = x[p_base + p][j] * scale for the
 // `span` columns j, zero for j >= in_dim and past the point tail. Warp w
-// takes rows w, w + 8, ..., with all 16 of a lane's loads in flight.
+// takes rows w, w + 8, ..., with all of a lane's loads in flight.
+template <int kRowsPerWarp>
 __device__ __forceinline__ void load_x_scaled(float* act,
                                               const float* __restrict__ x,
                                               int c0, int span, int in_dim,
@@ -338,20 +411,30 @@ __device__ __forceinline__ void half_to_act(const float (&v)[64], float* act,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
-                 int n_points, int in_dim, const MlpDesc d) {
+// One block's kTileP points from p_base through every layer. kSave: also
+// copy each hidden layer's output to d.acts (bulk copies); kSplit: 64
+// points, the warpgroups splitting each chunk's outputs (see the head
+// comment).
+template <bool kSave, bool kSplit>
+__device__ __forceinline__ void mlp_tile(const float* __restrict__ x,
+                                         float* __restrict__ out,
+                                         int n_points, int in_dim,
+                                         const MlpDesc& d, int p_base) {
+  constexpr int kTileP = tile_p<kSplit>();
+  constexpr int kRowsPerWarp = kTileP / (kThreads / 32);
+  constexpr int kHalves = kSplit ? 2 : 1;        // output halves per tile
   extern __shared__ float4 smem4[];
   float* act = reinterpret_cast<float*>(smem4);   // kTileP x kActLd
-  float* split_buf = act + kTileP * kActLd;       // 2 x (hi, lo) x kRaw
-  float* raw = split_buf + 2 * 2 * kRaw;          // kStages x kRaw
+  float* split_buf = act + kTileP * kActLd;       // 2 x kHalves x (hi, lo)
+  float* raw = split_buf + 2 * kHalves * 2 * kRaw;  // kStages x kHalves
   __shared__ uint64_t full[kStages];
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int row = (warp / 4) * 64 + (warp % 4) * 16 + g;  // fragment row
-  const int p_base = blockIdx.x * kTileP;
+  const int wg = warp / 4;
+  // Fragment row: warpgroup w owns points 64w.. (split: both own 0..63).
+  const int row = (kSplit ? 0 : wg * 64) + (warp % 4) * 16 + g;
   // 1/sqrt(2) in f32: PyTorch's CUDA division by a scalar multiplies by
   // the reciprocal too (within 1 ulp of dividing).
   const float kRsqrt2 = 0.70710678118654752f;
@@ -359,7 +442,8 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
   int n_tiles = 0;
   for (int l = 0; l < d.n_layers; ++l) {
     for (int n0 = 0; n0 < d.n[l]; n0 += kChunkN) {
-      n_tiles += halves(d.n[l], n0) * (round_up(d.k[l], kTileK) / kTileK);
+      n_tiles += (kSplit ? 1 : halves(d.n[l], n0)) *
+                 (round_up(d.k[l], kTileK) / kTileK);
     }
   }
 
@@ -373,11 +457,11 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
 
   // The first kStages weight tiles go in flight before the input loads.
-  Cursor prod{0, last_chunk(d.n[0]), 0, 0};
+  Cursor<kSplit> prod{0, last_chunk(d.n[0]), 0, 0};
   int issued = 0;
   for (; issued < kStages && issued < n_tiles; ++issued) {
-    issue_tile(prod, d, raw + issued * kRaw, smem_u32(&full[issued]), warp,
-               lane);
+    issue_tile(prod, d, raw + issued * kHalves * kRaw,
+               smem_u32(&full[issued]), warp, lane);
     prod.advance(d);
   }
 
@@ -397,20 +481,30 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   mbar_wait(smem_u32(&full[0]), 0);
-  split_tile(raw, split_buf, split_buf + kRaw, tid);
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) {
+    float* sb = split_buf + h * 2 * kRaw;
+    split_tile(raw + h * kRaw, sb, sb + kRaw, tid);
+  }
   __syncthreads();
 
-  float hold[64], acc[64], part[64];
+  float hold[64], acc[64], part[64];  // hold: unused when split
   int tile = 0;
   int width = in_dim;
   for (int layer = 0; layer < d.n_layers; ++layer) {
     if (layer == d.skip_at) {
+      if (kSave) {
+        // The previous layer's copies read the columns scaled here.
+        bulk_wait_read();
+        __syncthreads();
+      }
       // concat([h, x]) / sqrt(2), in place.
       for (int p = warp; p < kTileP; p += 8) {
         for (int k = lane; k < width; k += 32) act[p * kActLd + k] *= kRsqrt2;
       }
-      load_x_scaled(act, x, width, round_up(width + in_dim, 8) - width,
-                    in_dim, p_base, n_points, kRsqrt2, warp, lane);
+      load_x_scaled<kRowsPerWarp>(act, x, width,
+                                  round_up(width + in_dim, 8) - width, in_dim,
+                                  p_base, n_points, kRsqrt2, warp, lane);
       width += in_dim;
       __syncthreads();
     }
@@ -421,11 +515,14 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
 
     for (int n0 = last_chunk(N); n0 >= 0; n0 -= kChunkN) {
       const int nh = halves(N, n0);
-      for (int half = 0; half < nh; ++half) {
+      for (int half = 0; half < (kSplit ? 1 : nh); ++half) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] = 0.f;
         for (int k0 = 0; k0 < K; k0 += kTileK, ++tile) {
-          const float* sb = split_buf + (tile & 1) * 2 * kRaw;
+          // This warpgroup's split tile: half wg when split.
+          const float* sb = split_buf +
+                            ((tile & 1) * kHalves + (kSplit ? wg : 0)) * 2 *
+                                kRaw;
           const float* a = act + row * kActLd + k0 + t;
           // The tile's second k-step only where the layer has inputs there
           // (activation columns past round_up(K, 8) are not written).
@@ -456,8 +553,12 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
           if (tile + 1 < n_tiles) {
             const int s = (tile + 1) % kStages;
             mbar_wait(smem_u32(&full[s]), ((tile + 1) / kStages) & 1);
-            float* nb = split_buf + ((tile + 1) & 1) * 2 * kRaw;
-            split_tile(raw + s * kRaw, nb, nb + kRaw, tid);
+#pragma unroll
+            for (int h = 0; h < kHalves; ++h) {
+              float* nb =
+                  split_buf + (((tile + 1) & 1) * kHalves + h) * 2 * kRaw;
+              split_tile(raw + (s * kHalves + h) * kRaw, nb, nb + kRaw, tid);
+            }
           }
           asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
           fence_regs(part);
@@ -467,13 +568,14 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
           // the split tile the next k-step reads.
           __syncthreads();
           if (issued < n_tiles) {
-            issue_tile(prod, d, raw + (issued % kStages) * kRaw,
-                       smem_u32(&full[issued % kStages]), warp, lane);
+            const int s = issued % kStages;
+            issue_tile(prod, d, raw + s * kHalves * kRaw,
+                       smem_u32(&full[s]), warp, lane);
             prod.advance(d);
             ++issued;
           }
         }
-        if (half == 0 && nh == 2) {
+        if (!kSplit && half == 0 && nh == 2) {
 #pragma unroll
           for (int i = 0; i < 64; ++i) hold[i] = acc[i];
         }
@@ -483,14 +585,20 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
         // A hidden layer (N <= kChunkN), or the last layer's final chunk:
         // every warp is done reading this layer's input, so the output
         // replaces it, zero from N up to the half's end (weights and bias
-        // there are zero).
+        // there are zero). In save mode the previous layer's copies must
+        // have read the tile first.
+        if (kSave) bulk_wait_read();
         __syncthreads();
-        if (nh == 2) {
+        if (kSplit) {
+          half_to_act(acc, act, B, N, n0, wg * kHalfN, row, t, last,
+                      d.final_act);
+        } else if (nh == 2) {
           half_to_act(hold, act, B, N, n0, 0, row, t, last, d.final_act);
           half_to_act(acc, act, B, N, n0, kHalfN, row, t, last, d.final_act);
         } else {
           half_to_act(acc, act, B, N, n0, 0, row, t, last, d.final_act);
         }
+        if (kSave && !last) fence_async_shared();  // read by the copies
         __syncthreads();
         if (last) {
           // Coalesced rows of the (points, N) output, outputs 0..nc-1.
@@ -499,18 +607,12 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
             float* orow = out + (size_t)(p_base + p) * N;
             for (int n = lane; n < nc; n += 32) orow[n] = act[p * kActLd + n];
           }
-        } else if (d.acts != nullptr) {
-          // Save mode: this hidden layer's output rows, after the earlier
-          // hidden layers' columns.
-          int col = 0;
-          for (int l = 0; l < layer; ++l) col += d.n[l];
-          for (int p = warp; p < kTileP && p_base + p < n_points; p += 8) {
-            float* arow = d.acts + (size_t)(p_base + p) * d.acts_ld + col;
-            for (int n = lane; n < N; n += 32) arow[n] = act[p * kActLd + n];
-          }
-          // The skip layer scales the tile in place before its first
-          // barrier, so every copy must be done first.
-          __syncthreads();
+        } else if (kSave && tid == 0) {
+          // This hidden layer's rows of the block, as one copy.
+          const int rows = min(kTileP, n_points - p_base);
+          bulk_store(d.acts + ((size_t)layer * n_points + p_base) * kActLd,
+                     smem_u32(act), rows * kActLd * (int)sizeof(float));
+          bulk_commit();
         }
       } else {
         // An earlier chunk of the last layer: straight from registers.
@@ -519,13 +621,15 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int gp = p_base + row + (e >> 1) * 8;
-            const int n = n0 + 8 * i + 2 * t + (e & 1);
-            const float v0 = nh == 2 ? hold[4 * i + e] : acc[4 * i + e];
+            const int n = n0 + (kSplit ? wg * kHalfN : 0) + 8 * i + 2 * t +
+                          (e & 1);
+            const float v0 =
+                !kSplit && nh == 2 ? hold[4 * i + e] : acc[4 * i + e];
             if (n < N && gp < n_points) {
               out[(size_t)gp * N + n] =
                   final_act(v0 + __ldg(B + n), d.final_act);
             }
-            if (nh == 2 && n + kHalfN < N && gp < n_points) {
+            if (!kSplit && nh == 2 && n + kHalfN < N && gp < n_points) {
               out[(size_t)gp * N + n + kHalfN] =
                   final_act(acc[4 * i + e] + __ldg(B + n + kHalfN),
                             d.final_act);
@@ -536,6 +640,41 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
     }
     width = N;
   }
+  // Every copy has read the tile before the block's shared memory goes.
+  if (kSave) bulk_wait_read();
+}
+
+// Blocks 0 .. blocks128 - 1 take 128 points each; the points after them
+// go in 64-point split blocks, which the card starts last (the schedule).
+template <bool kSave>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
+                 int n_points, int in_dim, const __grid_constant__ MlpDesc d,
+                 int blocks128) {
+  const int b = blockIdx.x;
+  if (b < blocks128) {
+    mlp_tile<kSave, false>(x, out, n_points, in_dim, d, b * tile_p<false>());
+  } else {
+    mlp_tile<kSave, true>(x, out, n_points, in_dim, d,
+                          blocks128 * tile_p<false>() +
+                              (b - blocks128) * tile_p<true>());
+  }
+}
+
+template <bool kSave>
+cudaError_t launch(const float* x, float* out, int n_points, int in_dim,
+                   const MlpDesc& d, int blocks128, cudaStream_t stream) {
+  constexpr size_t kBytes = smem_bytes<false>() > smem_bytes<true>()
+                                ? smem_bytes<false>() : smem_bytes<true>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kBytes);
+  if (err != cudaSuccess) return err;
+  const int rest = max(0, n_points - blocks128 * tile_p<false>());
+  const int blocks = blocks128 + (rest + tile_p<true>() - 1) / tile_p<true>();
+  fused_mlp_kernel<kSave><<<blocks, kThreads, kBytes, stream>>>(
+      x, out, n_points, in_dim, d, blocks128);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -548,16 +687,26 @@ int vfn_fused_mlp_max_width() { return kMaxWidth; }
 // Widest hidden layer: a hidden layer's output is held in registers whole.
 int vfn_fused_mlp_max_hidden() { return kChunkN; }
 
+// Row pitch (floats) of the saved activations.
+int vfn_fused_mlp_acts_pitch() { return kActLd; }
+
 // Launch on `stream`. `weights` and `biases` are HOST arrays of device
 // pointers, `k_dims` / `n_dims` host arrays of the layer widths. `acts`:
-// null, or a device buffer of n_points x (sum of the hidden widths) f32 that
-// receives every hidden layer's output (save mode). Returns the CUDA error
-// code of the configuration and the launch (0 on success).
+// null, or a 16-byte aligned device buffer of (n_layers - 1) x n_points x
+// vfn_fused_mlp_acts_pitch() f32 that receives every hidden layer's output
+// in the first columns of its rows (save mode). `blocks128`: how many
+// 128-point blocks lead the grid (0 .. ceil(n_points / 128)); the points
+// after them go in 64-point split blocks. Returns the CUDA error code of
+// the configuration and the launch (0 on success).
 int vfn_fused_mlp(const float* x, float* out, int n_points, int in_dim,
                   const float* const* weights, const float* const* biases,
                   const int* k_dims, const int* n_dims, int n_layers,
-                  int skip_at, int final_act, float* acts, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || in_dim > kMaxWidth) {
+                  int skip_at, int final_act, float* acts, int blocks128,
+                  void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || in_dim > kMaxWidth ||
+      blocks128 < 0 ||
+      blocks128 > (n_points + tile_p<false>() - 1) / tile_p<false>() ||
+      (reinterpret_cast<uintptr_t>(acts) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   MlpDesc d;
@@ -574,16 +723,10 @@ int vfn_fused_mlp(const float* x, float* out, int n_points, int in_dim,
   d.skip_at = skip_at;
   d.final_act = final_act;
   d.acts = acts;
-  d.acts_ld = 0;
-  for (int i = 0; i < n_layers - 1; ++i) d.acts_ld += n_dims[i];
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_points + kTileP - 1) / kTileP;
-  fused_mlp_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      x, out, n_points, in_dim, d);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(acts != nullptr
+                   ? launch<true>(x, out, n_points, in_dim, d, blocks128, s)
+                   : launch<false>(x, out, n_points, in_dim, d, blocks128, s));
 }
 
 const char* vfn_error_string(int code) {

@@ -66,8 +66,10 @@ class KernelLibrary:
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
         lib.vfn_fused_mlp.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                                      _I, _P, _P]
+                                      _I, _P, _I, _P]
         lib.vfn_fused_mlp.restype = _I
+        lib.vfn_fused_mlp_acts_pitch.argtypes = []
+        lib.vfn_fused_mlp_acts_pitch.restype = _I
         lib.vfn_fused_mlp_max_width.argtypes = []
         lib.vfn_fused_mlp_max_width.restype = _I
         lib.vfn_fused_mlp_max_hidden.argtypes = []

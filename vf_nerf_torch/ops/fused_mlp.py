@@ -12,12 +12,14 @@ Training (frozen BatchNorm, as the shipped conf trains) runs the same
 kernel in its activation-save mode and ``FusedMLP``'s backward
 (``mlp_backward_reference``) on cuBLAS; autograd carries the weight
 gradients through ``fold_dense_bn`` to the Linear and BatchNorm
-parameters.
+parameters. The saved activations are one layer-major tensor of
+``acts_shape``; ``hidden_views`` cuts it into the per-layer outputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -28,6 +30,72 @@ from vf_nerf_torch.kernels import load_library
 
 Weights = List[Tuple[torch.Tensor, torch.Tensor]]
 _ACTS = {"none": 0, "tanh": 1, "sigmoid": 2}
+# Row pitch (floats) of the saved activations: the kernel's shared
+# activation tile's (``vfn_fused_mlp_acts_pitch``), so that one block's rows
+# of a layer are one bulk copy.
+ACTS_PITCH = 300
+# The kernel's blocks take 128 points, or 64 with the outputs split between
+# its two warpgroups; this is the time of a 64-point block over a 128-point
+# block's, with which ``blocks_of_128`` weighs rounds of blocks (on the
+# H100, ``split_block_cost`` in chip_smoke.py phase train_kernels).
+SPLIT_BLOCK_COST = 0.62
+
+
+def acts_shape(weights: Weights, n_points: int) -> Tuple[int, int, int]:
+    """Shape of the saved activations of ``n_points`` points: (hidden
+    layers, points, ``ACTS_PITCH``), layer-major. Hidden layer l's output is
+    the first ``width_l`` columns of ``acts[l]``; the columns after it hold
+    whatever the kernel's tile held there and are never read."""
+    return len(weights) - 1, n_points, ACTS_PITCH
+
+
+def hidden_views(acts: torch.Tensor, weights: Weights) -> List[torch.Tensor]:
+    """Each hidden layer's (N, width) output: views (row stride
+    ``ACTS_PITCH``) of the saved activations ``acts`` of ``acts_shape``."""
+    if acts.shape != acts_shape(weights, acts.shape[1]):
+        raise ValueError(f"saved activations of shape {tuple(acts.shape)}; "
+                         f"these layers save "
+                         f"{acts_shape(weights, acts.shape[1])}")
+    return [acts[i, :, :w.shape[1]] for i, (w, _) in enumerate(weights[:-1])]
+
+
+def blocks_of_128(n_points: int, n_sms: int) -> int:
+    """How many 128-point blocks lead the launch of ``n_points`` on a card
+    of ``n_sms`` SMs (one block per SM at a time); the points after them go
+    in 64-point split blocks, which start last. Of all 128-point blocks,
+    or k full rounds of them and the rest split, the fewest estimated
+    rounds: the training step's 20,480 shell points take one round of 132
+    blocks and 56 split blocks (1.6 rounds, not 2), its 204,800 fine points
+    12 rounds and 32 split blocks; the render's 133,120 points stay all
+    128 (their rest would take two rounds of split blocks)."""
+    def rounds(blocks):
+        return -(-blocks // n_sms)
+
+    full = -(-n_points // 128)
+    best, cost = full, rounds(full)
+    for k in range(full // n_sms + 1):
+        rest = max(0, n_points - 128 * k * n_sms)
+        c = k + SPLIT_BLOCK_COST * rounds(-(-rest // 64))
+        if c < cost:
+            best, cost = k * n_sms, c
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(lib) -> Tuple[int, int]:
+    """The kernel's widest layer input and hidden layer, read once per
+    library, after checking its saved-activation pitch against
+    ``ACTS_PITCH``."""
+    if lib.lib.vfn_fused_mlp_acts_pitch() != ACTS_PITCH:
+        raise RuntimeError("the kernel's saved-activation pitch differs "
+                           "from ACTS_PITCH")
+    return (lib.lib.vfn_fused_mlp_max_width(),
+            lib.lib.vfn_fused_mlp_max_hidden())
 
 
 def fold_dense_bn(linear: nn.Linear, bn: Optional[nn.BatchNorm1d] = None
@@ -69,8 +137,8 @@ def mlp_backward_reference(weights: Weights, x: torch.Tensor,
                            final_act: str, need_dx: bool = True):
     """The backward of ``mlp_reference`` from the forward's saved values.
 
-    :param acts: (N, sum of hidden widths) every hidden layer's post-ReLU
-        output, layer after layer (what the kernel's save mode writes).
+    :param acts: every hidden layer's post-ReLU output, of ``acts_shape``
+        (what the kernel's save mode writes), read through ``hidden_views``.
     :param y: (N, out) the forward's output; ``dy`` its gradient.
     :return: ([(dW (in, out), db (out,))] per layer, dx (N, in) or None).
 
@@ -84,8 +152,7 @@ def mlp_backward_reference(weights: Weights, x: torch.Tensor,
     default, which the port's scripts set).
     """
     n = len(weights)
-    widths = [w.shape[1] for w, _ in weights[:-1]]
-    hidden = torch.split(acts, widths, dim=1) if widths else ()
+    hidden = hidden_views(acts, weights)
     if final_act == "tanh":
         dz = dy * (1.0 - y * y)
     elif final_act == "sigmoid":
@@ -192,9 +259,11 @@ class FusedMLP(torch.autograd.Function):
 
 
 def _launch(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
-            final_act: str, save: bool):
-    """One kernel launch on CUDA tensors: (out (N, out_dim), acts (N, sum
-    of hidden widths) when ``save``, else None)."""
+            final_act: str, save: bool, blocks128: Optional[int] = None):
+    """One kernel launch on CUDA tensors: (out (N, out_dim), acts of
+    ``acts_shape`` when ``save``, else None). ``blocks128``: the leading
+    128-point blocks (0 .. ceil(N / 128); the rest of the points in 64-point
+    split blocks); None lets ``blocks_of_128`` choose."""
     tensors = [x] + [t for wb in weights for t in wb]
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or \
@@ -203,8 +272,7 @@ def _launch(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
                              f"one device; got {t.dtype} {t.device} "
                              f"contiguous={t.is_contiguous()}")
     lib = load_library()
-    max_width = lib.lib.vfn_fused_mlp_max_width()
-    max_hidden = lib.lib.vfn_fused_mlp_max_hidden()
+    max_width, max_hidden = _limits(lib)
     widest = max([x.shape[1]] + [w.shape[0] for w, _ in weights])
     hidden = max([0] + [w.shape[1] for w, _ in weights[:-1]])
     if widest > max_width or hidden > max_hidden:
@@ -212,19 +280,22 @@ def _launch(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
                          f"(layer inputs) and {max_hidden} (hidden layers); "
                          f"got {widest} and {hidden}")
     n_layers = len(weights)
-    out = torch.empty((x.shape[0], weights[-1][0].shape[1]),
+    n_points = x.shape[0]
+    out = torch.empty((n_points, weights[-1][0].shape[1]),
                       dtype=torch.float32, device=x.device)
-    acts = torch.empty((x.shape[0], sum(w.shape[1] for w, _ in weights[:-1])),
-                       dtype=torch.float32, device=x.device) if save else None
-    if x.shape[0] == 0:
+    acts = torch.empty(acts_shape(weights, n_points), dtype=torch.float32,
+                       device=x.device) if save else None
+    if n_points == 0:
         return out, acts
+    if blocks128 is None:
+        blocks128 = blocks_of_128(n_points, _sm_count(x.device.index))
     ptrs = _pointer_arrays(weights)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.lib.vfn_fused_mlp(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], *ptrs,
+            x.data_ptr(), out.data_ptr(), n_points, x.shape[1], *ptrs,
             n_layers, -1 if skip_at is None else skip_at, _ACTS[final_act],
-            None if acts is None else acts.data_ptr(), stream)
+            None if acts is None else acts.data_ptr(), blocks128, stream)
     lib.check(code, "fused_mlp launch")
     fused_mlp.launches += 1
     return out, acts
