@@ -593,3 +593,101 @@ def test_train_step_on_card_matches_cpu(cuda):
                 ray_march_backward.launches - before[2]) == (5, 2, 1)
         assert np.isfinite(float(sums["loss"]))
     assert opt.count == 2
+
+
+# ------------------------------------------------------------ mesh stack
+
+def _box_field(half=1.0):
+    """The analytic box field (``tests/test_mesh_stack.py``) in torch."""
+    def fn(p):
+        dist = half - p.abs()
+        inside = (dist > 0).all(-1)
+        axis = dist.argmin(-1)
+        rows = torch.arange(p.shape[0], device=p.device)
+        sign = torch.sign(p[rows, axis])
+        sign = torch.where(sign == 0, 1.0, sign)
+        v_in = torch.zeros_like(p)
+        v_in[rows, axis] = sign
+        closest = p.clamp(-half, half)
+        delta = closest - p
+        v_out = delta / torch.clamp(torch.linalg.vector_norm(
+            delta, dim=-1, keepdim=True), min=1e-8)
+        v = torch.where(inside[:, None], v_in, v_out)
+        udf = torch.where(dist.amin(-1) > 0, dist.amin(-1),
+                          torch.linalg.vector_norm(p - closest, dim=-1))
+        return v * torch.clamp(udf, min=1e-4)[:, None]
+    return fn
+
+
+def _near_identical(ours, ref, voxel):
+    """The near-identity rule: vertex counts within 2 %, median
+    nearest-neighbour distance < 1e-5, max < 2 voxels."""
+    from scipy.spatial import cKDTree
+    assert len(ours[0]) > 0 and len(ref[0]) > 0
+    assert abs(len(ours[0]) - len(ref[0])) <= 0.02 * len(ref[0])
+    d = cKDTree(ref[0]).query(ours[0], k=1)[0]
+    assert np.median(d) < 1e-5 and d.max() < 2 * voxel
+
+
+def test_grid_points_on_card_equal_cpu(cuda):
+    """The grid points are float64 arithmetic rounded once: bit for bit."""
+    from vf_nerf_torch.evaluation.mc.device_pipeline import grid_points
+    off = torch.tensor([0.55, -0.55, 0.55])
+    idx = torch.cat([torch.arange(100_000),
+                     torch.arange(256 ** 3 - 100_000, 256 ** 3)])
+    ref = grid_points(256, 1.1, off, idx)
+    got = grid_points(256, 1.1, off.to(cuda), idx.to(cuda))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("smooth", [dict(), dict(smooth_before=True),
+                                    dict(smooth_after=True)])
+def test_mesh_extractor_on_card_matches_cpu(cuda, smooth):
+    from vf_nerf_torch.evaluation.mc.device_pipeline import \
+        DeviceMeshExtractor
+    meshes = []
+    for device in (cuda, "cpu"):
+        extractor = DeviceMeshExtractor(_box_field(1.0), 48, device=device,
+                                        chunk=30_000, **smooth)
+        meshes.append(extractor.extract(1.5, np.zeros(3),
+                                        np.zeros(3, np.float32)))
+    _near_identical(meshes[0], meshes[1], 2 * 1.5 / 47)
+
+
+def test_mesh_classification_with_ties_on_card_equals_cpu(cuda):
+    """Constant cells, antipodal corners and axis vectors give exact ties;
+    the card breaks them as the CPU does (first maximum)."""
+    from vf_nerf_torch.evaluation.mc.device_pipeline import (
+        cell_signed_values, normalize_grid)
+    g = np.random.RandomState(5).randn(14, 14, 14, 3).astype(np.float32)
+    g[2:6, 2:6, 2:6] = np.array([0.0, 2.0, 0.0], np.float32)
+    g[7:9, 7:9, 7:9] = np.array([1.0, 0.0, 0.0], np.float32)
+    g[8, 7:9, 7:9] = np.array([-1.0, 0.0, 0.0], np.float32)
+    g[9:13, 1:5, 8:12] = np.eye(3, dtype=np.float32)[
+        np.indices((4, 4, 4)).sum(0) % 3]
+    cells = torch.from_numpy(np.argwhere(np.ones((13, 13, 13), bool)))
+    vt, norms = normalize_grid(torch.from_numpy(g))
+    ref = cell_signed_values(vt, norms, cells)
+    got = cell_signed_values(vt.to(cuda), norms.to(cuda), cells.to(cuda))
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_fused_mlp_at_the_grid_chunk(cuda):
+    """The shipped VF widths at the mesh grid's chunk (1 << 20 points, the
+    (N, 259) output's index past 2^28) against the plain version on the
+    card; the extractor's field call is one launch per chunk."""
+    from vf_nerf_torch.evaluation.mc.device_pipeline import (GRID_CHUNK,
+                                                             grid_points)
+    from vf_nerf_torch.ops.embedding import positional_encoding
+    weights = [(w.to(cuda), b.to(cuda))
+               for w, b in _mlp_weights(VF_DIMS, 4, seed=7)]
+    pts = grid_points(256, 1.1, torch.zeros(3, device=cuda),
+                      torch.arange(GRID_CHUNK, device=cuda))
+    x = positional_encoding(pts, 6).contiguous()
+    before = fused_mlp.launches
+    out = fused_mlp(weights, x, skip_at=4, final_act="tanh")
+    ref = mlp_reference(weights, x, 4, "tanh")
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)

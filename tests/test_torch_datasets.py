@@ -84,5 +84,5 @@ def test_registry_and_config_path():
                           ref.epoch_batches(np.random.RandomState(42)))
     np.testing.assert_array_equal(pixel_grid(5, 7), jpixel_grid(5, 7))
     for name in ("replica", "scannet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.1"):
             dataset_dict[name](DatasetConfig(**dict(kw, dataset_name=name)))

@@ -8,7 +8,8 @@
   of the port's runner write the JAX package's artifact tree, with the eval
   flags set as JAX sets them (perturb off, back-face threshold −0.2, the
   fine count grown again from the checkpoint's epoch), and the PSNRs in
-  ``metrics.json`` are JAX's ``get_psnr`` on the written files.
+  ``metrics.json`` are JAX's ``get_psnr`` on the written files; the plot
+  methods and ``all`` raise, naming ``matplotlib`` and ROADMAP A.7.
 - ``get_vector_field`` equals JAX's from the same weights (rtol 1e-5).
 """
 
@@ -181,8 +182,8 @@ def test_evaluate_writes_the_jax_tree(trained_run, monkeypatch):
         assert depth.shape == (h, w) and np.isfinite(depth).all()
     assert scores["mean_psnr"] == pytest.approx(float(np.mean(psnrs)),
                                                 rel=1e-12)
-    for method in ("marching-cubes-mesh", "3d-metrics", "all"):
-        with pytest.raises(NotImplementedError, match="A.2"):
+    for method in ("plot-2d-slices", "all"):
+        with pytest.raises(NotImplementedError, match="matplotlib.*A.7"):
             evaluate_mod.evaluate(cfg, method, 32, evals, 512, 0.05, 8)
 
 

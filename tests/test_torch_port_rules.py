@@ -1,7 +1,8 @@
-"""The port's rules: it imports neither ``jax`` nor ``vf_nerf_tpu``, its
-entry points refuse to run without CUDA unless asked for the CPU, a CUDA
-tensor never reaches a kernel's plain version, and the parts outside this
-slice raise ``NotImplementedError``.
+"""The port's rules: it imports neither ``jax`` nor ``vf_nerf_tpu`` and
+loads no library from the root ``csrc/``, its entry points refuse to run
+without CUDA unless asked for the CPU, a CUDA tensor never reaches a
+kernel's plain version, a failed host build raises instead of falling back
+to numpy, and the parts outside this slice raise ``NotImplementedError``.
 
 The import check runs in a subprocess, because this test process has
 imported jax already (``tests/conftest.py``).
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from vf_nerf_torch import kernels
+from vf_nerf_torch.kernels import host
 from vf_nerf_torch.config import parse_config
 from vf_nerf_torch.models.nerf import VectorFieldNerf, resolve_device
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
@@ -33,6 +35,8 @@ _RENDER_IN_CLEAN_PROCESS = f"""
 import sys
 import numpy as np
 import vf_nerf_torch
+import vf_nerf_torch.evaluation.evaluate
+import vf_nerf_torch.evaluation.mc.pipeline
 from vf_nerf_torch.config import parse_config
 from vf_nerf_torch.models.nerf import VectorFieldNerf
 
@@ -257,3 +261,87 @@ class _FakeLib:
     class lib:
         vfn_ray_march_max_samples = staticmethod(lambda: 1024)
         vfn_ray_march_max_taps = staticmethod(lambda: 64)
+
+
+# The root csrc's libraries by name, the root reached from a module
+# (``parents[2] / "csrc"``) or a path joined onto "csrc".
+ROOT_CSRC = re.compile(r"libmeshops\.so|librasterizer\.so|"
+                       r"parents\[2\]\s*/\s*[\"']csrc|"
+                       r"join\([^)]*[\"']csrc[\"']")
+
+
+def test_no_source_loads_the_root_csrc_libraries():
+    """The port builds its own host libraries from ``vf_nerf_torch/csrc``
+    into ``build/host``; no module names the root ``csrc/`` or its ``.so``
+    files, and the host build's sources and outputs lie where it says."""
+    files = sorted((ROOT / "vf_nerf_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        hits = ROOT_CSRC.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} names {hits}"
+    assert host.CSRC == ROOT / "vf_nerf_torch" / "csrc"
+    assert host.BUILD_ROOT == ROOT / "build" / "host"
+    assert (host.CSRC / "meshops.cpp").exists()
+    assert (host.CSRC / "rasterizer.cpp").exists()
+    assert [p.suffix for p in kernels.sources()] == [".cu", ".cu"]
+
+
+def _host_calls():
+    """One call of each path that needs a host library."""
+    import numpy as np
+    from vf_nerf_torch.evaluation import renderer
+    from vf_nerf_torch.evaluation.mc import contrastive
+
+    gv = np.zeros((1, 8, 3))
+    vv = np.array([[-1.0, 1, 1, 1, 1, 1, 1, 1]])
+    tris = np.random.RandomState(0).rand(4, 3, 3)
+    verts = np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]], np.float32)
+    faces = np.array([[0, 1, 2]], np.int32)
+    return {
+        "emit_triangles": lambda: contrastive.emit_triangles(gv, vv),
+        "dedup_mesh": lambda: contrastive.dedup_mesh(tris),
+        "render_depth": lambda: renderer.render_depth(
+            verts, faces, np.eye(4), np.eye(4), 4, 4),
+    }
+
+
+@pytest.mark.parametrize("call", ["emit_triangles", "dedup_mesh",
+                                  "render_depth"])
+def test_a_failed_host_build_raises_and_never_falls_back(call, monkeypatch,
+                                                         tmp_path):
+    """Without g++ (and no library built for the source hash) each host
+    path raises naming g++; the numpy versions are never called and nothing
+    is written."""
+    from vf_nerf_torch.evaluation import renderer
+    from vf_nerf_torch.evaluation.mc import contrastive
+
+    def fell_back(*args, **kwargs):
+        raise AssertionError("a host path fell back to numpy")
+
+    monkeypatch.setattr(contrastive, "emit_triangles_numpy", fell_back)
+    monkeypatch.setattr(renderer, "_render_depth_numpy", fell_back)
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    monkeypatch.setattr(host, "BUILD_ROOT", tmp_path / "build")
+    host.load_host_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            _host_calls()[call]()
+    finally:
+        host.load_host_library.cache_clear()
+    assert not (tmp_path / "build").exists()
+
+
+def test_a_failing_host_compile_raises(monkeypatch, tmp_path):
+    """A compiler that fails raises with its output; no library is left."""
+    fake = tmp_path / "g++"
+    fake.write_text("#!/bin/sh\necho 'bad source' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(shutil, "which", lambda _: str(fake))
+    monkeypatch.setattr(host, "BUILD_ROOT", tmp_path / "build")
+    host.load_host_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="bad source"):
+            host.meshops()
+    finally:
+        host.load_host_library.cache_clear()
+    assert not list((tmp_path / "build").rglob("*.so"))

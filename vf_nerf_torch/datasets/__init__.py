@@ -2,7 +2,7 @@
 ``datasets/normal_datasets/__init__.py:4-7``).
 
 The Replica and ScanNet loaders read 8-bit colour frames and 16-bit depth
-PNGs; their reader is not ported yet (``ROADMAP.md`` A.2), so those names
+PNGs; their reader is not ported yet (``ROADMAP.md`` A.1), so those names
 raise ``NotImplementedError``. The synthetic scenes need no files.
 """
 
@@ -18,7 +18,7 @@ def _not_ported(name: str) -> Callable[..., BaseDataset]:
         raise NotImplementedError(
             f"the {name} loader is not ported to vf_nerf_torch yet: it needs "
             "a reader for its colour frames and 16-bit depth PNGs "
-            "(ROADMAP.md A.2); train on 'synthetic' or 'synthetic_office'")
+            "(ROADMAP.md A.1); train on 'synthetic' or 'synthetic_office'")
     return make
 
 

@@ -5,13 +5,19 @@
 Eval forces ``perturb=False`` and ``dir_to_normal_th=-0.2`` (reference
 ``:30-32``), grows the fine-sample count again from the checkpoint's epoch
 on top of the restored count (``:37-41``), and writes under
-``<eval_folder>/<expname>/<timestamp>_<checkpoint>/``. ``render-images`` and
-``metrics`` are ported; the mesh and plot methods (and so ``all``) raise
-``NotImplementedError`` until ``ROADMAP.md`` A.2. On CUDA unless the config
-asks for the CPU (``--gpu cpu``) or ``device`` says so. Usage::
+``<eval_folder>/<expname>/<timestamp>_<checkpoint>/``. Ported:
+``render-images``, ``metrics``, ``marching-cubes-mesh`` and
+``quadrant-marching-cubes-mesh`` (each in its plain and two smoothed
+variants), ``tsdf-mesh`` and ``3d-metrics``. The plot methods, and so
+``all``, raise ``NotImplementedError``: they need ``matplotlib``, which the
+card's machine lacks (``ROADMAP.md`` A.7). On CUDA unless the config asks
+for the CPU (``--gpu cpu``) or ``device`` says so. Usage::
 
     python -m vf_nerf_torch.evaluation.evaluate --scene office0 \\
         --expname replica --timestamp T --checkpoint latest --method metrics
+    python -m vf_nerf_torch.evaluation.evaluate ... \\
+        --method quadrant-marching-cubes-mesh --resolution 256 \\
+        --num_quadrants 8
 """
 
 from __future__ import annotations
@@ -22,14 +28,21 @@ from typing import Tuple
 from vf_nerf_torch.config.parser import (config_device, eval_argparser,
                                          parse_config)
 from vf_nerf_torch.config.schema import VFRunnerConfig
+from vf_nerf_torch.datasets import dataset_dict
 from vf_nerf_torch.evaluation import methods
 from vf_nerf_torch.models.nerf import VectorFieldNerf
 from vf_nerf_torch.utils import io as io_utils
 
-PORTED = ("render-images", "metrics")
-NOT_PORTED = ("marching-cubes-mesh", "quadrant-marching-cubes-mesh",
-              "plot-2d-slices", "plot-overall-scene", "plot-3d-slices",
-              "tsdf-mesh", "3d-metrics", "all")
+PORTED = ("marching-cubes-mesh", "quadrant-marching-cubes-mesh",
+          "render-images", "metrics", "tsdf-mesh", "3d-metrics")
+NOT_PORTED = ("plot-2d-slices", "plot-overall-scene", "plot-3d-slices", "all")
+# Timestamps of external baselines' meshes, scored by metrics_3d_no_vf
+# (JAX ``evaluate.py:126-138``).
+BASELINES = ("monosdf", "neuralangelo", "neuris", "manhattan_sdf", "mono_sdf")
+# The variants of both marching-cubes methods: (subfolder suffix,
+# smooth_all, smooth_after).
+MC_VARIANTS = (("", False, False), ("-smoothed", True, False),
+               ("-smoothed-after", False, True))
 
 
 def eval_model(config: VFRunnerConfig, device=None
@@ -66,8 +79,9 @@ def evaluate(config: VFRunnerConfig, method: str, resolution: int,
     to the mesh methods."""
     if method in NOT_PORTED:
         raise NotImplementedError(
-            f"eval method {method!r} needs the mesh stack, which is not "
-            f"ported yet (ROADMAP.md A.2); ported: {', '.join(PORTED)}")
+            f"eval method {method!r} needs the plots, which need matplotlib "
+            f"and are not ported yet (ROADMAP.md A.7); ported: "
+            f"{', '.join(PORTED)}")
     if method not in PORTED:
         raise ValueError(f"unknown eval method {method!r}")
     model, epoch = eval_model(config, device)
@@ -75,12 +89,35 @@ def evaluate(config: VFRunnerConfig, method: str, resolution: int,
                                f"{config.timestamp}_{config.checkpoint}")
     io_utils.mkdir_ifnotexists(eval_folder)
     print("Evaluating the model.")
-    if method == "render-images":
-        methods.render_images(model, eval_folder, config.dataset_config,
-                              epoch, chunk_size)
+    dcfg = config.dataset_config
+    if method in ("marching-cubes-mesh", "quadrant-marching-cubes-mesh"):
+        dataset = dataset_dict[dcfg.dataset_name](dcfg)
+        quadrant = method == "quadrant-marching-cubes-mesh"
+        for suffix, smooth_all, smooth_after in MC_VARIANTS:
+            kw = dict(scale=dataset.scale, max_batch=100000,
+                      centroid=dataset.get_centroid(),
+                      smooth_after=smooth_after, smooth_all=smooth_all)
+            if quadrant:
+                methods.quadrant_marching_cubes(
+                    model, resolution,
+                    os.path.join(eval_folder, "merged-mesh" + suffix),
+                    config.checkpoint, num_quadrants=num_quadrants, **kw)
+            else:
+                methods.marching_cubes_mesh(
+                    model, resolution, os.path.join(eval_folder,
+                                                    "mesh" + suffix),
+                    config.checkpoint, **kw)
+    elif method == "render-images":
+        methods.render_images(model, eval_folder, dcfg, epoch, chunk_size)
+    elif method == "metrics":
+        methods.metrics(model, eval_folder, dcfg, epoch, chunk_size)
+    elif method == "tsdf-mesh":
+        methods.tsdf_mesh(eval_folder, dcfg)
+    elif config.timestamp in BASELINES:
+        methods.metrics_3d_no_vf(eval_folder, config.checkpoint, dcfg,
+                                 distance_thresh=distance_thresh)
     else:
-        methods.metrics(model, eval_folder, config.dataset_config, epoch,
-                        chunk_size)
+        methods.metrics_3d(eval_folder, dcfg, distance_thresh=distance_thresh)
     return eval_folder
 
 
