@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive vf_nerf_torch's eval render, training step, VF init, training
-runner, image evaluation and mesh stack on one CUDA card, and check their
-kernels.
+runner, image evaluation, mesh stack, Replica/ScanNet loaders and joint
+pose-and-field stage on one CUDA card, and check their kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, nvcc and g++; it builds the kernels and the host libraries from
@@ -80,11 +80,12 @@ Phases, each printing one JSON line:
    the final loss below half the first's, and the ``.pkl`` loaded back by
    ``load_vf_init`` giving the fitted net's field bit for bit; ms per step;
 11. runner: ``VectorFieldNerfRunner.train()`` of the shipped conf on the
-   synthetic box scene (8 views of 32 x 48, 1024 rays per step) for 60
-   epochs with a save every 20, from the phase-10 init: 5 / 2 / 1 launches
+   synthetic box scene (8 views of 32 x 48, 1024 rays per step) for 240
+   epochs (``RUNNER_EPOCHS``: the joint stage of phase 15 needs that field)
+   with a save every 20, from the phase-10 init: 5 / 2 / 1 launches
    per step, the loss of the last 5 epochs below the first 5's, the
    checkpoints, ``metrics.jsonl`` and ``convergence.json``, the fine count
-   40; a resume from ``latest`` at epoch 61 with the fine count 45 and the
+   55; a resume from ``latest`` at epoch 241 with the fine count 75 and the
    state equal bit for bit; the run rate (every step after epoch 0 over the
    wall time from the end of epoch 0 to the final synchronize, saves
    included) against phase 9's bare step, the logged per-epoch rates, the
@@ -93,7 +94,7 @@ Phases, each printing one JSON line:
    ``0`` checkpoints: the images, depths and ``metrics.json``, 3 MLP and 2
    march launches per chunk, the trained mean PSNR above epoch 0's, and the
    eval's rays/s; then the 512-ray tail chunk of a view through
-   ``render_image`` of the ``latest`` eval model (fine count 45, so 145
+   ``render_image`` of the ``latest`` eval model (fine count 75, so 175
    samples) against the port's plain path on the CPU, as in phase 5;
 13. mesh: the box scene's GT mesh written with ``save_ply`` where
    ``_gt_mesh_path`` reads it; ``evaluate(..., "quadrant-marching-cubes-
@@ -109,11 +110,49 @@ Phases, each printing one JSON line:
    ``mlp_reference`` (``MLP_TOL``) with its ms per 1 M points beside the
    3xTF32 bound and the cuBLAS chain; one res-64 octant of ``latest`` on
    the card against the CPU plain MLP (vertex counts within 2 %, median
-   nearest-neighbour distance < 1e-5, max < 2 voxels). Phases 10-13 write
-   under ``build/smoke_run`` and delete it at the end.
+   nearest-neighbour distance < 1e-5, max < 2 voxels);
+14. loaders: the port's exporters write the office (24 views of 240 x 320,
+   ``tools/office_protocol.py``'s defaults) in Replica's layout and the box
+   in ScanNet's (``frame_stride`` 40); ``dataset_dict`` reads both back:
+   depths (as the 16-bit PNGs hold them), poses and intrinsics exactly,
+   the decoded colour at >= 40 dB PSNR against the source's uint8 frames,
+   the centroid and scale as the mesh helpers give them; the seconds per
+   frame of the JPEG encoder and of the decoder (``csrc/jpeg.cpp``) and the
+   decoder's MB/s; then 5 epochs of the runner with the shipped conf on
+   the Replica-format office (5 / 2 / 1 launches per step, the last
+   epoch's loss below the first's);
+15. joint: ``JointOptimizationRunner`` from phase 11's ``latest`` at the
+   efficacy study's settings (``results/joint_efficacy_r5.json``,
+   "anchored"): one step's wrapper launches and CUDA kernels, 3 fused MLP,
+   2 ray march and 1 march backward, in the pose-only and the joint
+   optimizer; the joint loss and every gradient (field and poses) of 128
+   of the step's rays against the CPU plain path in float64 (within
+   1e-2·max|g|: the card's ReLU flips move weight gradients by ~1e-3);
+   ``FusedMLP`` with the VF net's ``dx`` (and the colour net's)
+   at the step's fine points against autograd through ``mlp_reference``
+   (``MLP_GRAD_TOL``, masks as in phase 8); the poses of views 1-7
+   perturbed by 1.5 deg and 0.02 (seed 0), 100 pose-only and 50 joint
+   epochs (3 / 2 / 1 launches per step), pose 0 unchanged and the mean
+   rotation error at most half its start (the translation error printed
+   beside JAX's 0.020 -> 0.030, not checked); ms per step of each phase,
+   rays/s, the busy share over one more epoch; then two 2-epoch runs with
+   a supervision block every epoch, self-supervised and with the bases
+   from a res-128 marching-cubes mesh, all finite, their seconds.
+   Phases 10-15 write under ``build/smoke_run`` and delete it at the end.
+
+``python3 chip_smoke.py --joint-scan [--epochs 60 120 240 480] [--scene
+smoke|efficacy] [--resume-at N] [--seeds 0 1 ...]`` runs a study instead:
+phase 10's VF init, the box scene trained through ``VectorFieldNerfRunner``
+for the largest epoch count (with ``--resume-at``, N epochs and then a
+resume from ``latest``) with a checkpoint after each listed count, and from
+each, per perturbation seed, phase 15's efficacy run; one JSON line each
+(the pose errors before and after, the loss and mean rotation error every
+10 joint epochs). ``efficacy`` is the box of ``tools/joint_efficacy.py``
+(6 views of 96 x 128).
 
 Then the script's seconds, the ``{"kernels": [...]}`` line (``launches``:
-the runner's, with each other path's as ``launches_<path>``; the fused MLP's
+the runner's, with each other path's as ``launches_<path>``, the loaders'
+runner and the joint run among them; the fused MLP's
 ``mesh_*_per_1m_points`` at the grid chunk), the card's ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero without that last line. Weights are the port's seeded
@@ -123,6 +162,7 @@ flips along rays and both branches of the fine sampler occur.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import os
@@ -137,7 +177,11 @@ import numpy as np
 import torch
 
 from vf_nerf_torch.config import parse_config
-from vf_nerf_torch.datasets.synthetic import SyntheticBoxDataset
+from vf_nerf_torch.config.joint_parser import \
+    parse_config as parse_joint_config
+from vf_nerf_torch.config.schema import DatasetConfig
+from vf_nerf_torch.datasets.synthetic import (SyntheticBoxDataset,
+                                              SyntheticOfficeDataset)
 from vf_nerf_torch.datasets import dataset_dict
 from vf_nerf_torch.evaluation import methods
 from vf_nerf_torch.evaluation.evaluate import eval_model, evaluate
@@ -158,10 +202,15 @@ from vf_nerf_torch.ops.ray_march import (MarchStatics, fused_ray_march,
                                          ray_march_backward,
                                          ray_march_backward_reference,
                                          ray_march_reference)
+from vf_nerf_torch.ops.rays import (get_ray_directions_and_cam_location,
+                                    matrix_to_pose7)
 from vf_nerf_torch.parallel import train_step as train
+from vf_nerf_torch.train.joint_runner import JointOptimizationRunner
 from vf_nerf_torch.train.runner import VectorFieldNerfRunner
 from vf_nerf_torch.train.vf_init import (default_vf_config, fit_vf_init,
                                          save_vf_init)
+from vf_nerf_torch.utils.jpeg import decode_jpeg, encode_jpeg
+from vf_nerf_torch.utils.meshes import mesh_bounds, mesh_centroid
 from vf_nerf_torch.utils.ply import load_ply, save_ply
 
 ROOT = Path(__file__).resolve().parent
@@ -190,7 +239,10 @@ N_FINE_ACTIVE = 30
 # per step, then the shipped conf trained on the synthetic box scene.
 VF_INIT_STEPS = 800
 VF_INIT_BATCH = 8192
-RUNNER_EPOCHS = 60
+# 240 epochs: the joint stage (phase 15) starts from this run's field, and
+# from 60 or 120 main epochs its efficacy run diverged on the card (mean
+# rotation error 25.8 and 21.6 deg from 1.5; ``--joint-scan``).
+RUNNER_EPOCHS = 240
 # Checkpoints, depth maps and meshes of phases 10-13 (deleted at the end);
 # what is kept goes to OUT.
 RUN_DIR = ROOT / "build" / "smoke_run"
@@ -675,17 +727,20 @@ def hidden_forward(weights, x, skip_at):
     return torch.cat(hidden, 1)
 
 
-def hold_fused_mlp_training(name, weights, x, skip_at, act, gen) -> dict:
+def hold_fused_mlp_training(name, weights, x, skip_at, act, gen,
+                            need_dx=None) -> dict:
     """``FusedMLP`` (the save-mode launch) on ``x`` against the plain
     version: its output against the no-save launch bit for bit, its saved
     activations against the plain forward's, and its gradients against
-    autograd through ``mlp_reference`` within ``MLP_GRAD_TOL``. Returns the
-    errors and the case's tensors (``leaves``, ``x_leaf``, ``inputs``,
+    autograd through ``mlp_reference`` within ``MLP_GRAD_TOL``, the input's
+    ``dx`` among them when ``need_dx`` (default: the colour net's). Returns
+    the errors and the case's tensors (``leaves``, ``x_leaf``, ``inputs``,
     ``acts``, the output ``y`` and the upstream gradient ``dy``)."""
     leaves = [(w.clone().requires_grad_(True),
                b.clone().requires_grad_(True)) for w, b in weights]
     flat = [t for wb in leaves for t in wb]
-    x_leaf = x.clone().requires_grad_(act == "sigmoid")
+    need_dx = act == "sigmoid" if need_dx is None else need_dx
+    x_leaf = x.clone().requires_grad_(need_dx)
     with torch.no_grad():
         plain_out = fused_mlp(weights, x, skip_at, act)
     out = fused_mlp(leaves, x_leaf, skip_at, act)
@@ -711,10 +766,12 @@ def hold_fused_mlp_training(name, weights, x, skip_at, act, gen) -> dict:
     ref = torch.autograd.grad(mlp_reference(leaves, x_leaf, skip_at, act),
                               inputs, dy)
     err = max(max_rel(g, r) for g, r in zip(got, ref))
+    dx_err = max_rel(got[-1], ref[-1]) if need_dx else None
     check(err <= MLP_GRAD_TOL and agree >= 0.99,
           f"FusedMLP {name}: gradient error {err} (limit {MLP_GRAD_TOL}), "
           f"ReLU masks agree on {agree} of the points")
-    return dict(max_rel_grad_err=err, relu_mask_agreement=agree,
+    return dict(max_rel_grad_err=err, dx_max_rel_err=dx_err,
+                relu_mask_agreement=agree,
                 acts_max_rel_err=acts_err, leaves=leaves, x_leaf=x_leaf,
                 inputs=inputs, acts=saved, y=plain_out, dy=dy)
 
@@ -1217,6 +1274,19 @@ def _state_equal(a: VectorFieldNerf, b: VectorFieldNerf) -> bool:
     return same and a.step == b.step
 
 
+def runner_fine_counts(cfg) -> tuple:
+    """The fine count after ``RUNNER_EPOCHS`` epochs (+5 at every 50th
+    epoch from 0, up to max_samples), after a resume from ``latest`` and in
+    the eval model of ``latest`` (the JAX package's regrowth on top of the
+    saved count: + 5 * (start epoch // 50), + 5 * (epoch // 50))."""
+    rs = cfg.vf_nerf_config.ray_sampler_config
+    end = min(rs.n_importance + 5 * len(range(0, RUNNER_EPOCHS,
+                                              rs.increase_every)),
+              rs.max_samples)
+    return tuple(min(end + 5 * (e // rs.increase_every), rs.max_samples)
+                 for e in (0, RUNNER_EPOCHS + 1, RUNNER_EPOCHS))
+
+
 def phase_runner(pkl, step_ms):
     """``VectorFieldNerfRunner.train()`` of the shipped conf on the box
     scene from the phase-10 VF init, then a resume from ``latest``."""
@@ -1268,18 +1338,19 @@ def phase_runner(pkl, step_ms):
     missing += [n for n in ("metrics.jsonl", "convergence.json")
                 if not (Path(runner.run_dir) / n).exists()]
     check(not missing, f"runner: missing {missing}")
-    check(runner.model.fine_n_samples == 40,
-          f"runner: fine count {runner.model.fine_n_samples}, expected 40 "
-          f"(growth at epochs 0 and 50)")
+    fine_end, fine_resumed, _ = runner_fine_counts(cfg)
+    check(runner.model.fine_n_samples == fine_end,
+          f"runner: fine count {runner.model.fine_n_samples}, expected "
+          f"{fine_end} (+5 at every 50th epoch from 0)")
 
     resumed_cfg = scene_runner_config("latest")
     resumed = VectorFieldNerfRunner(resumed_cfg)
     check(resumed_cfg.start_epoch == RUNNER_EPOCHS + 1,
           f"resume: start_epoch {resumed_cfg.start_epoch}, expected "
           f"{RUNNER_EPOCHS + 1}")
-    check(resumed.model.fine_n_samples == 45,
-          f"resume: fine count {resumed.model.fine_n_samples}, expected 45 "
-          f"(40 + 5 * (61 // 50))")
+    check(resumed.model.fine_n_samples == fine_resumed,
+          f"resume: fine count {resumed.model.fine_n_samples}, expected "
+          f"{fine_resumed} (the saved count + 5 * (start epoch // 50))")
     check(_state_equal(resumed.model, runner.model),
           "resume: the loaded parameters, Adam moments or count differ from "
           "the trained model's")
@@ -1364,8 +1435,9 @@ def phase_eval():
 
 def hold_eval_tail_chunk() -> dict:
     """The last chunk of view 0 (1,536 pixels in chunks of 1,024: 512 rays)
-    through ``render_image`` of the ``latest`` eval model (fine count 45),
-    against the port's plain path on the CPU."""
+    through ``render_image`` of the ``latest`` eval model (the fine count of
+    a resume, ``runner_fine_counts``), against the port's plain path on the
+    CPU."""
     cfg = scene_runner_config("latest")
     model, epoch = eval_model(cfg)
     dataset = dataset_dict[cfg.dataset_config.dataset_name](
@@ -1375,9 +1447,10 @@ def hold_eval_tail_chunk() -> dict:
     batch = dataset[0]
     uv = batch["uv"][len(batch["uv"]) // N_RAYS * N_RAYS:]
     n = len(uv)
-    check(n == 512 and model.fine_n_samples == 45,
+    fine = runner_fine_counts(cfg)[2]
+    check(n == 512 and model.fine_n_samples == fine,
           f"eval tail chunk: {n} rays at fine count {model.fine_n_samples}, "
-          f"expected 512 at 45")
+          f"expected 512 at {fine}")
     statics = model.render_statics(white_background=dataset.white_bkgd)
     draw_state = model.generator.get_state()
     reset_launches()
@@ -1676,6 +1749,574 @@ def phase_mesh() -> dict:
     return rows["quadrant_latest"]["launches"], grid_chunk
 
 
+# ---------------------------------------------------------------- loaders
+OFFICE_VIEWS, OFFICE_SIZE, OFFICE_PITCH = 24, (240, 320), 1.1
+LOADER_EPOCHS = 5
+MIN_DECODE_PSNR = 40.0
+
+
+def psnr_u8(decoded: np.ndarray, source: np.ndarray) -> float:
+    """PSNR (dB) of uint8 ``decoded`` against uint8 ``source``."""
+    mse = float(np.mean((decoded.astype(np.float64) - source) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def frame_u8(scene, i: int) -> np.ndarray:
+    """A synthetic scene's frame as the exporters write it."""
+    h, w = scene.image_size
+    return (scene.rgb_images[i].reshape(h, w, 3) * 255).astype(np.uint8)
+
+
+def hold_loaded_scene(name, scene, loaded, frames) -> dict:
+    """A loaded scene against the synthetic ``scene`` it was exported from:
+    depths (as the 16-bit PNG in mm holds them), poses and intrinsics
+    exactly, the decoded colour at ``MIN_DECODE_PSNR`` or more against the
+    source's uint8 frames, the centroid and the scale as the port's mesh
+    helpers give them on the GT mesh."""
+    written = np.stack([(scene.depth_images[i] * 1000.0).astype(np.uint16)
+                        for i in range(scene.n_images)]).astype(
+                            np.float32) / 1e3
+    verts, faces = scene.gt_mesh()
+    centroid = mesh_centroid(verts, faces).astype(np.float32)
+    scale = float(np.abs(mesh_bounds(verts) - centroid).max() * 1.1)
+    psnrs = [psnr_u8(np.rint(loaded.rgb_images[i] * 255.0).reshape(
+        frames[i].shape), frames[i]) for i in range(scene.n_images)]
+    exact = dict(
+        views=len(loaded) == scene.n_images,
+        depth=np.array_equal(loaded.depth_images, written),
+        poses=np.array_equal(loaded.poses, scene.poses),
+        intrinsics=np.array_equal(loaded.intrinsics, scene.intrinsics),
+        centroid=np.array_equal(loaded.gt_mesh_centroid, centroid),
+        scale=loaded.scale == scale)
+    check(all(exact.values()), f"loaders {name}: not equal to the source: "
+          f"{[k for k, ok in exact.items() if not ok]}")
+    check(min(psnrs) >= MIN_DECODE_PSNR,
+          f"loaders {name}: decoded colour at {min(psnrs)} dB PSNR against "
+          f"the source (limit {MIN_DECODE_PSNR})")
+    return dict(views=len(loaded), image_size=list(loaded.image_size),
+                min_psnr_db=min(psnrs), mean_psnr_db=float(np.mean(psnrs)),
+                bounds=list(loaded.get_bounds()), scale=loaded.scale)
+
+
+def phase_loaders(pkl) -> dict:
+    """The port's exporters and loaders on the card's machine: the office
+    (24 views of 240 x 320, ``tools/office_protocol.py``'s defaults) in
+    Replica's layout and the box in ScanNet's (``frame_stride`` 40), both
+    read back through ``dataset_dict``; then ``LOADER_EPOCHS`` epochs of the
+    runner with the shipped conf on the Replica-format office, from the
+    phase-10 VF init."""
+    progress("loaders: export and read back")
+    data = RUN_DIR / "data"
+    office = SyntheticOfficeDataset(n_images=OFFICE_VIEWS,
+                                    image_size=OFFICE_SIZE,
+                                    pixels_per_batch=1024,
+                                    pitch_range=OFFICE_PITCH)
+    box = SyntheticBoxDataset()
+    t0 = time.perf_counter()
+    office.export_replica_format(str(data), scene="office")
+    box.export_scannet_format(str(data), scene="box", frame_stride=40)
+    export_s = time.perf_counter() - t0
+    frames = [frame_u8(office, i) for i in range(office.n_images)]
+    t0 = time.perf_counter()
+    blobs = [encode_jpeg(f, 98) for f in frames]
+    encode_s = (time.perf_counter() - t0) / len(frames)
+    decode_jpeg(blobs[0])                    # the library's build and load
+    t0 = time.perf_counter()
+    for blob in blobs:
+        decode_jpeg(blob)
+    decode_total = time.perf_counter() - t0
+    h, w = OFFICE_SIZE
+
+    def dataset_config(fmt, scene, **extra):
+        return DatasetConfig(dataset_name=fmt, shuffle_views=True,
+                             pixels_per_batch=1024, scene=scene,
+                             data_root_dir=str(data),
+                             data_dir="Replica" if fmt == "replica"
+                             else "ScanNet", **extra)
+
+    t0 = time.perf_counter()
+    replica = dataset_dict["replica"](dataset_config("replica", "office",
+                                                     factor=1))
+    replica_s = time.perf_counter() - t0
+    scannet = dataset_dict["scannet"](dataset_config("scannet", "box",
+                                                     crop_edge=0))
+    rows = {"replica_office": hold_loaded_scene("replica_office", office,
+                                                replica, frames),
+            "scannet_box": hold_loaded_scene(
+                "scannet_box", box, scannet,
+                [frame_u8(box, i) for i in range(box.n_images)])}
+    del replica, scannet
+
+    progress("loaders: the runner on the Replica-format office")
+    shutil.copy(pkl, data / "Replica" / "office" / "office.pkl")
+    cfg = parse_config(scene="office", config_path=str(CONF),
+                       expname="smoke", timestamp="run", offline=True,
+                       data_root_dir=str(data))
+    cfg.dataset_config.dataset_name = "replica"
+    cfg.dataset_config.factor = 1
+    cfg.num_epochs = LOADER_EPOCHS
+    cfg.save_frequency = 100
+    cfg.exps_folder = str(RUN_DIR / "exps")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = VectorFieldNerfRunner(cfg)
+    build_s = time.perf_counter() - t0
+    runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = LOADER_EPOCHS * len(runner.dataset)
+    check(launches == {"fused_mlp": 5 * steps, "fused_ray_march": 2 * steps,
+                       "ray_march_backward": steps},
+          f"loaders: runner launches {launches} over {steps} steps, expected "
+          f"5 / 2 / 1 per step")
+    with open(Path(runner.run_dir) / "metrics.jsonl") as f:
+        losses = [line["loss"] for line in map(json.loads, f)
+                  if line.get("_type") == "metrics"]
+    check(len(losses) == LOADER_EPOCHS and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0],
+          f"loaders: the office run's last epoch loss is not below its "
+          f"first: {losses}")
+    emit({"phase": "loaders", "export_seconds": export_s,
+          "encode_s_per_frame": encode_s,
+          "decode_s_per_frame": decode_total / len(blobs),
+          "decode_mb_per_s": len(blobs) * h * w * 3 / 1e6 / decode_total,
+          "decode_jpeg_mb_per_s": sum(map(len, blobs)) / 1e6 / decode_total,
+          "jpeg_bytes_per_frame": float(np.mean([len(b) for b in blobs])),
+          "replica_load_seconds": replica_s, **rows,
+          "runner": dict(epochs=LOADER_EPOCHS, steps=steps,
+                         views=len(runner.dataset),
+                         rays_per_step=runner.dataset.total_pixels,
+                         dataset_seconds=build_s, seconds=seconds,
+                         launches=launches, losses=losses)})
+    del runner
+    return launches
+
+
+# ------------------------------------------------------------------ joint
+# The efficacy study's settings (results/joint_efficacy_r5.json,
+# "anchored"): 100 pose-only + 50 joint epochs, pose lr 1e-2, joint lr 1e-3,
+# view 0 anchored and left unperturbed, rgb and depth weights only, no
+# supervision blocks.
+JOINT_EPOCHS, JOINT_POSE_ONLY = 150, 100
+JOINT_ROT_DEG, JOINT_TRANS = 1.5, 0.02
+SUPERVISED_EPOCHS = 2
+JOINT_HOLD_RAYS = 128       # rays of the joint step held to the CPU
+# The joint gradients' limit against float64, per tensor, of max|g|. The
+# card's 3xTF32 forward flips a few ReLUs whose pre-activation is within
+# its rounding of 0 (phase 8), which moves a layer's weight-gradient sums by
+# ~1e-3 (measured 1.4e-3 on the first VF layer over 128 rays, the CPU's
+# float32 chain 1.1e-4); a dropped term of the chain misses by O(1).
+JOINT_GRAD_TOL = 1e-2
+
+
+def perturb_poses(poses, rot_deg, trans, seed=0, skip=()):
+    """``tools/joint_efficacy.py::perturb_poses``: each (4, 4) pose turned
+    by ``rot_deg`` about a random axis and moved by ``trans`` in a random
+    direction; views in ``skip`` keep their pose but draw all the same."""
+    rng = np.random.RandomState(seed)
+    out = poses.copy()
+    for i in range(len(out)):
+        if i in skip:
+            rng.normal(size=3)
+            rng.normal(size=3)
+            continue
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        ang = np.deg2rad(rot_deg)
+        k = np.array([[0, -axis[2], axis[1]],
+                      [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        rot = np.eye(3) + np.sin(ang) * k + (1 - np.cos(ang)) * (k @ k)
+        out[i, :3, :3] = out[i, :3, :3] @ rot
+        dt = rng.normal(size=3)
+        out[i, :3, 3] += dt / np.linalg.norm(dt) * trans
+    return out
+
+
+def pose7_errors(pose7_a, pose7_b) -> dict:
+    """``tools/joint_efficacy.py::pose7_errors``: per-view rotation (deg)
+    and translation errors, mean and max."""
+    qa = pose7_a[:, :4] / np.linalg.norm(pose7_a[:, :4], axis=1,
+                                         keepdims=True)
+    qb = pose7_b[:, :4] / np.linalg.norm(pose7_b[:, :4], axis=1,
+                                         keepdims=True)
+    dots = np.clip(np.abs((qa * qb).sum(axis=1)), 0.0, 1.0)
+    rot_deg = np.rad2deg(2.0 * np.arccos(dots))
+    trans = np.linalg.norm(pose7_a[:, 4:] - pose7_b[:, 4:], axis=1)
+    return {"rot_deg_mean": float(rot_deg.mean()),
+            "rot_deg_max": float(rot_deg.max()),
+            "trans_mean": float(trans.mean()),
+            "trans_max": float(trans.max())}
+
+
+def joint_config(timestamp: str, epochs: int, pose_only: int,
+                 supervise_every: int, self_supervise: bool = True,
+                 source: str = "latest"):
+    """The joint stage of the shipped confs on the box scene, resuming the
+    runner phase's checkpoint ``source`` (copied into the joint run as its
+    ``latest``)."""
+    cfg = parse_joint_config(
+        scene="box", vf_config_path=str(CONF),
+        joint_config_path=str(ROOT / "confs" / "joint_optimization.conf"),
+        expname="smoke", timestamp=timestamp, checkpoint="latest",
+        offline=True)
+    vf = cfg.vf_config
+    vf.dataset_config.dataset_name = "synthetic"
+    vf.exps_folder = str(RUN_DIR / "joint")
+    weights = vf.supervised_loss_weights
+    weights.rgb, weights.unit_norm, weights.similarity = 1.0, 0.0, 0.0
+    tc = cfg.train_config
+    tc.joint_epochs, tc.pose_only_epochs = epochs, pose_only
+    tc.supervise_every = supervise_every
+    tc.pose_lr, tc.refinement_init_lr = 1e-2, 1e-3
+    tc.anchor_first_pose = True
+    cfg.self_supervise = self_supervise
+    cfg.save_frequency = 50
+    ckpt_dir = Path(vf.exps_folder) / vf.expname / timestamp / "checkpoints" \
+        / "vf_nerf"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    main = RUN_DIR / "exps" / vf.expname / "run" / "checkpoints" / "vf_nerf"
+    shutil.copy(main / f"{source}.ckpt", ckpt_dir / "latest.ckpt")
+    return cfg
+
+
+def perturbed_pose7(dataset, seed: int = 0) -> tuple:
+    """(GT pose7, perturbed pose7) of the dataset's views: views 1.. turned
+    by ``JOINT_ROT_DEG`` and moved by ``JOINT_TRANS`` (``seed``), view 0,
+    the anchor, left as it is."""
+    gt7 = matrix_to_pose7(torch.from_numpy(dataset.poses)).numpy()
+    perturbed = perturb_poses(dataset.poses, JOINT_ROT_DEG, JOINT_TRANS,
+                              seed=seed, skip=(0,))
+    return gt7, matrix_to_pose7(torch.from_numpy(perturbed)).numpy()
+
+
+def joint_efficacy(timestamp: str, source: str = "latest",
+                   trace_every: int = 0, seed: int = 0) -> tuple:
+    """The efficacy run: ``JointOptimizationRunner.train()`` from checkpoint
+    ``source`` with the poses perturbed by ``seed``. Returns (the runner, a
+    dict with
+    the launches, seconds, peak memory, the pose errors before and after
+    over views 1.., the logged epochs and, every ``trace_every`` epochs,
+    the mean rotation error)."""
+    runner = JointOptimizationRunner(joint_config(
+        timestamp, JOINT_EPOCHS, JOINT_POSE_ONLY, 0, source=source))
+    gt7, start7 = perturbed_pose7(runner.dataset, seed)
+    runner.pose_params = start7
+    trace = []
+    if trace_every:
+        train_epoch = runner.train_epoch
+
+        def traced(epoch, draws=None):
+            log = train_epoch(epoch, draws)
+            if epoch % trace_every == 0 or epoch == JOINT_EPOCHS - 1:
+                trace.append([epoch, log["loss"], pose7_errors(
+                    runner.pose_params[1:], gt7[1:])["rot_deg_mean"]])
+            return log
+
+        runner.train_epoch = traced
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    with open(Path(runner.run_dir) / "metrics.jsonl") as f:
+        logged = [line for line in map(json.loads, f)
+                  if line.get("_type") == "metrics"]
+    return runner, dict(
+        launches=launches, seconds=seconds,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        start7=start7, logged=logged, trace=trace,
+        before=pose7_errors(start7[1:], gt7[1:]),
+        after=pose7_errors(runner.pose_params[1:], gt7[1:]))
+
+
+def joint_step_kernels(probe, batch, statics, near, far, window) -> dict:
+    """One joint step of ``probe``: the wrappers' launch counts and the CUDA
+    kernels that ``torch.profiler`` sees, which must agree (one kernel per
+    wrapper call) and be 3 fused MLP, 2 ray march and 1 march backward."""
+    sums = probe._zero_sums(probe.JOINT_METRICS)
+    probe.joint_step(sums, batch, None, statics, near, far, window)
+    reset_launches()
+    counts = kernel_counts(lambda: probe.joint_step(
+        sums, batch, None, statics, near, far, window))
+    launches = read_launches()
+    expected = {"fused_mlp": 3, "fused_ray_march": 2,
+                "ray_march_backward": 1}
+    seen = {"fused_mlp": counts["fused_mlp_kernel"],
+            "fused_ray_march": counts["ray_march_kernel"],
+            "ray_march_backward": counts["ray_march_backward_kernel"]}
+    check(launches == expected and seen == expected,
+          f"joint step: wrapper launches {launches}, CUDA kernels {seen}; "
+          f"expected {expected}")
+    return dict(launches=launches, cuda_kernels=seen,
+                kernels=counts["kernels"], device_ms=counts["device_ms"])
+
+
+def hold_joint_gradients(probe, batch, statics, near, far, window) -> dict:
+    """The joint loss and every gradient (field and poses) of
+    ``JOINT_HOLD_RAYS`` rays of a batch on the card against the port's
+    plain path on the CPU in float64, from the same state and draws: each
+    gradient within max(``JOINT_GRAD_TOL``, the CPU float32 path's worst
+    distance from float64) of max|g|, the loss within rtol
+    ``TRAIN_LOSS_RTOL`` of the CPU float32 path."""
+    stride = max(len(batch["uv"]) // JOINT_HOLD_RAYS, 1)
+    held = {k: v[::stride][:JOINT_HOLD_RAYS] for k, v in batch.items()}
+    n_rays = len(held["uv"])
+    draws = draw_uniforms(statics, n_rays, probe.model.generator,
+                          probe.device)
+    results = []
+    for d, dt in ((probe.device, torch.float32), ("cpu", torch.float32),
+                  ("cpu", torch.float64)):
+        runner = copy.copy(probe)
+        runner.model = copy.copy(probe.model)
+        runner.model.modules = copy.deepcopy(probe.model.modules).to(d, dt)
+        runner.poses = probe.poses.detach().to(d, dt).requires_grad_(True)
+        fed = {k: v.to(d) if k == "view_idx" else v.to(d, dt)
+               for k, v in held.items()}
+        total, _ = runner.joint_loss(
+            fed, {k: v.to(d, dt) for k, v in draws.items()}, statics, near,
+            far, window.to(d, dt))
+        groups, pose_grad = runner._grads(total, with_model=True)
+        names = [f"{k}.{i}" for k, v in groups.items()
+                 for i in range(len(v))] + ["poses"]
+        grads = [g for v in groups.values() for g in v] + [pose_grad]
+        results.append((float(total.detach()),
+                        [g.detach().cpu().double() for g in grads]))
+        del runner
+    (loss, card), (cpu_loss, cpu), (_, f64) = results
+    errs = {n: dict(card_vs_f64=max_rel(g, r), cpu_vs_f64=max_rel(c, r))
+            for n, g, c, r in zip(names, card, cpu, f64)}
+    f32_spread = max(r["cpu_vs_f64"] for r in errs.values())
+    over = {n: r for n, r in errs.items()
+            if r["card_vs_f64"] > max(JOINT_GRAD_TOL, f32_spread)}
+    check(abs(loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss),
+          f"joint loss {loss} vs CPU plain path {cpu_loss}")
+    check(not over, f"joint gradients farther from float64 than allowed: "
+          f"{over}")
+    worst = max(errs, key=lambda n: errs[n]["card_vs_f64"])
+    return dict(rays=n_rays, loss=loss, cpu_loss=cpu_loss,
+                poses=errs["poses"], worst=worst, worst_errs=errs[worst],
+                max_cpu_vs_f64=f32_spread)
+
+
+def phase_joint() -> dict:
+    """``JointOptimizationRunner`` from the runner phase's trained box: the
+    efficacy run (anchored, perturbed poses), its launches and kernels, the
+    joint step's gradients against the CPU, ``FusedMLP``'s VF-net ``dx`` at
+    the step's shapes, then two short supervised runs (self-supervised
+    bases, and bases from MC at res 128)."""
+    progress("joint: one step's kernels and gradients")
+    probe = JointOptimizationRunner(joint_config(
+        "probe", JOINT_EPOCHS, JOINT_POSE_ONLY, 0))
+    dev = probe.device
+    probe.pose_params = perturbed_pose7(probe.dataset)[1]
+    batch = probe._feed(next(probe.dataset.epoch_batches(
+        np.random.RandomState(0))))
+    statics = probe.model.render_statics()
+    window = probe.model.to_device(probe.model.window_weights)
+    near, far = (float(np.float32(v)) for v in (probe.model.near,
+                                                 probe.model.far))
+    kernels = {"pose_only": joint_step_kernels(probe, batch, statics, near,
+                                               far, window)}
+    probe._make_optimizers(freeze_model=False)
+    kernels["joint"] = joint_step_kernels(probe, batch, statics, near, far,
+                                          window)
+    held = hold_joint_gradients(probe, batch, statics, near, far, window)
+    # FusedMLP with the VF net's dx (and the colour net's) at the step's
+    # shapes: the points of this batch's fine samples.
+    modules = probe.model.modules
+    with torch.no_grad():
+        out = render_rays(modules, batch["uv"],
+                          probe.poses[batch["view_idx"]],
+                          batch["intrinsics"], near, far, window, statics,
+                          generator=probe.model.generator)
+    pts = out["points"].reshape(-1, 3)
+    n_samples = out["points"].shape[1]
+    vf_w, rn_w = modules.folded_weights()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_vf = positional_encoding(
+        pts, modules.cfg.vf_net_config.embedder_multires).contiguous()
+    vf_case = hold_fused_mlp_training("joint_vf_fine", vf_w, x_vf,
+                                      modules.vf.skip_at, "tanh", gen,
+                                      need_dx=True)
+    with torch.no_grad():
+        vf_out = fused_mlp(vf_w, x_vf, modules.vf.skip_at, "tanh")
+        feat = modules.cfg.vf_net_config.feature_vector_dims
+        _, ray_dirs, _ = get_ray_directions_and_cam_location(
+            batch["uv"], probe.poses[batch["view_idx"]], batch["intrinsics"])
+        dirs = ray_dirs[:, None, :].expand(-1, n_samples, -1).reshape(-1, 3)
+        x_rn = modules.render.inputs(pts, vf_out[:, :3], dirs,
+                                     vf_out[:, 3:3 + feat]).contiguous()
+    rn_case = hold_fused_mlp_training("joint_colour", rn_w, x_rn, None,
+                                      "sigmoid", gen)
+    dx = {name: {k: case[k] for k in ("max_rel_grad_err", "dx_max_rel_err",
+                                       "relu_mask_agreement")}
+          for name, case in (("vf_fine", vf_case), ("colour", rn_case))}
+    dx["points"] = pts.shape[0]
+    check(vf_case["dx_max_rel_err"] is not None and
+          vf_case["dx_max_rel_err"] <= MLP_GRAD_TOL,
+          f"FusedMLP joint VF dx error {vf_case['dx_max_rel_err']}")
+    del probe, vf_case, rn_case, out, x_vf, x_rn, vf_out
+    torch.cuda.empty_cache()
+
+    progress("joint: the efficacy run")
+    runner, run = joint_efficacy("efficacy")
+    launches, seconds, before, after, logged = (
+        run[k] for k in ("launches", "seconds", "before", "after", "logged"))
+    steps = JOINT_EPOCHS * len(runner.dataset)
+    check(launches == {"fused_mlp": 3 * steps, "fused_ray_march": 2 * steps,
+                       "ray_march_backward": steps},
+          f"joint: launches {launches} over {steps} steps, expected 3 MLP, "
+          f"2 march and 1 march backward per step")
+    refined, start7 = runner.pose_params, run["start7"]
+    check(np.array_equal(refined[0], start7[0]),
+          "joint: the anchored pose 0 moved")
+    check(after["rot_deg_mean"] <= 0.5 * before["rot_deg_mean"],
+          f"joint: mean rotation error {after['rot_deg_mean']} deg is not at "
+          f"most half its start {before['rot_deg_mean']}")
+    check(len(logged) == JOINT_EPOCHS and
+          all(np.isfinite(line["loss"]) for line in logged),
+          "joint: the efficacy run's losses are missing or not finite")
+    n_rays = runner.dataset.total_pixels
+    ms = [n_rays / line["rays_per_sec"] * 1e3 for line in logged]
+    # The device's busy share over one more joint epoch.
+    busy = kernel_counts(lambda: runner.train_epoch(JOINT_EPOCHS))
+    emit_row = dict(
+        views=len(runner.dataset), rays_per_step=n_rays, steps=steps,
+        samples_per_ray=n_samples, launches=launches,
+        step_kernels=kernels, fused_mlp_training=dx,
+        seconds=seconds, ms_per_step=seconds / steps * 1e3,
+        rays_per_s=steps * n_rays / seconds,
+        pose_only_ms_per_step_median=float(np.median(ms[1:JOINT_POSE_ONLY])),
+        joint_ms_per_step_median=float(np.median(ms[JOINT_POSE_ONLY + 1:])),
+        busy_share=busy["device_ms"] / (busy["seconds"] * 1e3),
+        epoch_kernels=busy["kernels"], peak_memory_gb=run["peak_memory_gb"],
+        first_loss=logged[0]["loss"], last_loss=logged[-1]["loss"],
+        perturbation=dict(rot_deg=JOINT_ROT_DEG, trans=JOINT_TRANS, seed=0),
+        pose_error_before=before, pose_error_after=after,
+        jax_trans_mean_before_after=[0.020, 0.030])
+    del runner
+    torch.cuda.empty_cache()
+
+    progress("joint: the supervised runs")
+    # Short supervised runs: every epoch a block of the conf's
+    # supervision_epochs steps, with the bases from the field at surface
+    # points, then from a res-128 marching-cubes mesh.
+    supervised = {}
+    for self_supervise in (True, False):
+        name = "self_supervised" if self_supervise else "mc_bases"
+        runner = JointOptimizationRunner(joint_config(
+            f"sup_{name}", SUPERVISED_EPOCHS, 0, 1, self_supervise))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train()
+        torch.cuda.synchronize()
+        sup_seconds = time.perf_counter() - t0
+        with open(Path(runner.run_dir) / "metrics.jsonl") as f:
+            logs = [{k: v for k, v in line.items()
+                     if isinstance(v, (int, float))}
+                    for line in map(json.loads, f)
+                    if line.get("_type") == "metrics"]
+        finite = len(logs) == SUPERVISED_EPOCHS and all(
+            np.isfinite(v) for line in logs for v in line.values()) and \
+            all("supervised_loss" in line for line in logs) and \
+            bool(np.isfinite(runner.pose_params).all())
+        check(finite, f"joint {name}: a non-finite or missing value in "
+              f"{logs}")
+        supervised[name] = dict(seconds=sup_seconds, logs=logs)
+        del runner
+    emit({"phase": "joint", "field_epochs": RUNNER_EPOCHS, **emit_row,
+          "gradients_vs_cpu": held, "supervised": supervised})
+    return launches
+
+
+# The joint scan's box scenes: chip_smoke's, and tools/joint_efficacy.py's.
+SCAN_SCENES = {"smoke": dict(n_images=8, image_size=(32, 48)),
+               "efficacy": dict(n_images=6, image_size=(96, 128))}
+
+
+def joint_scan(argv) -> int:
+    """``--joint-scan``: how much main-stage training the joint stage's
+    efficacy run needs (module docstring, last paragraph). One JSON line per
+    main-epoch count and perturbation seed."""
+    parser = argparse.ArgumentParser(prog="chip_smoke.py --joint-scan")
+    parser.add_argument("--epochs", type=int, nargs="+",
+                        default=[60, 120, 240, 480])
+    parser.add_argument("--scene", choices=sorted(SCAN_SCENES),
+                        default="smoke")
+    parser.add_argument("--resume-at", type=int, default=0)
+    parser.add_argument("--seeds", type=int, nargs="+", default=[0])
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke --joint-scan: no CUDA device; this script runs "
+              "on the card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = SCAN_SCENES[args.scene]
+    dataset_dict["synthetic"] = \
+        lambda config: SyntheticBoxDataset(config, **scene)
+    targets = sorted(set(args.epochs))
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    RUN_DIR.mkdir(parents=True)
+    try:
+        pkl, _, _ = phase_vf_init(torch.device("cuda"))
+        t0 = time.perf_counter()
+        if args.resume_at:
+            cfg = scene_runner_config()
+            cfg.num_epochs = args.resume_at
+            first = VectorFieldNerfRunner(cfg)
+            first.model.load_vf_init(str(pkl))
+            first.train()
+            del first
+        cfg = scene_runner_config("latest" if args.resume_at else "")
+        cfg.num_epochs = targets[-1]
+        cfg.save_frequency = 10 ** 6
+        runner = VectorFieldNerfRunner(cfg)
+        if not args.resume_at:
+            runner.model.load_vf_init(str(pkl))
+        train_epoch = runner.train_epoch
+
+        def saving_epoch(epoch, draws=None):
+            logged = train_epoch(epoch, draws=draws)
+            if epoch + 1 in targets:
+                runner.model.save(epoch, runner.ckpt_dir)
+            return logged
+
+        runner.train_epoch = saving_epoch
+        runner.train()
+        torch.cuda.synchronize()
+        main_seconds = time.perf_counter() - t0
+        with open(Path(runner.run_dir) / "metrics.jsonl") as f:
+            losses = {line["step"]: line["loss"]
+                      for line in map(json.loads, f)
+                      if line.get("_type") == "metrics"}
+        del runner
+        for n in targets:
+            for seed in args.seeds:
+                joint, run = joint_efficacy(
+                    f"scan_{n}_{seed}", source=str(n - 1), trace_every=10,
+                    seed=seed)
+                print(json.dumps(dict(
+                    scene=args.scene, **scene, resume_at=args.resume_at,
+                    main_epochs=n, seed=seed, main_loss=losses.get(n - 1),
+                    main_seconds=main_seconds, joint_seconds=run["seconds"],
+                    pose_error_before=run["before"],
+                    pose_error_after=run["after"],
+                    trace_epoch_loss_rot=run["trace"],
+                    nvidia_smi=nvidia_smi())), flush=True)
+                del joint
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1722,12 +2363,15 @@ def main() -> int:
         runner_launches = phase_runner(pkl, step_ms)
         eval_launches = phase_eval()
         mesh_launches, grid_chunk = phase_mesh()
+        loader_launches = phase_loaders(pkl)
+        joint_launches = phase_joint()
     finally:
         # The checkpoints, the VF init, the depth maps and the meshes.
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     paths = {"runner": runner_launches, "train_step": train_launches,
              "render": launches, "vf_init": vf_launches,
-             "eval": eval_launches, "mesh": mesh_launches}
+             "eval": eval_launches, "mesh": mesh_launches,
+             "loaders": loader_launches, "joint": joint_launches}
 
     def launch_counts(name):
         """``launches``: this slice's main path, ``VectorFieldNerfRunner.
@@ -1781,4 +2425,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(joint_scan(sys.argv[2:]) if sys.argv[1:2] == ["--joint-scan"]
+             else main())

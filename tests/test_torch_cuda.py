@@ -351,6 +351,31 @@ def test_fused_mlp_save_mode_and_gradient(cuda, dims, skip_at, act, n):
         assert _max_rel(g, r) < 1e-4
 
 
+@pytest.mark.parametrize("n", [129, 3001])
+def test_fused_mlp_input_gradient_alone(cuda, n):
+    """The joint stage's pose-only epochs ask FusedMLP for the VF net's
+    input gradient alone (the weights take none): one save-mode launch,
+    dx equal to autograd through mlp_reference within 1e-4·max|g|, and no
+    weight gradient computed."""
+    weights = [(w.to(cuda), b.to(cuda))
+               for w, b in _mlp_weights(VF_DIMS, 4, seed=n)]
+    x = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (n, VF_DIMS[0])).astype(np.float32)).to(cuda).requires_grad_(
+            True)
+    before = fused_mlp.launches
+    out = fused_mlp(weights, x, skip_at=4, final_act="tanh")
+    assert fused_mlp.launches == before + 1
+    assert "FusedMLP" in type(out.grad_fn).__name__
+    acts = torch.cat(hidden_views(out.grad_fn.saved_tensors[1], weights), 1)
+    same = ((acts > 0) == (_plain_hidden(weights, x.detach(), 4) > 0)).all(1)
+    dy = torch.from_numpy(np.random.RandomState(4).randn(
+        n, VF_DIMS[-1]).astype(np.float32)).to(cuda) * same[:, None]
+    (got,) = torch.autograd.grad(out, [x], dy)
+    (ref,) = torch.autograd.grad(mlp_reference(weights, x, 4, "tanh"), [x],
+                                 dy)
+    assert _max_rel(got, ref) < 1e-4
+
+
 def _plain_hidden(weights, x, skip_at):
     """The plain forward's hidden outputs, side by side."""
     h, hidden = x, []

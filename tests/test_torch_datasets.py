@@ -73,7 +73,9 @@ def test_epoch_batches_equal_jax(name, cls, jcls, kw, mode):
 
 def test_registry_and_config_path():
     """The conf's ``dataset_name`` builds the same scene as the JAX
-    registry; the Replica and ScanNet loaders are not ported."""
+    registry; the Replica and ScanNet loaders, like the JAX ones, raise
+    ``FileNotFoundError`` without their files (``test_torch_loaders.py``
+    reads real-format scenes)."""
     kw = dict(dataset_name="synthetic", data_dir="Synthetic",
               shuffle_views=True, pixels_per_batch=64, scene="box",
               data_root_dir="data")
@@ -84,5 +86,5 @@ def test_registry_and_config_path():
                           ref.epoch_batches(np.random.RandomState(42)))
     np.testing.assert_array_equal(pixel_grid(5, 7), jpixel_grid(5, 7))
     for name in ("replica", "scannet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.1"):
+        with pytest.raises(FileNotFoundError):
             dataset_dict[name](DatasetConfig(**dict(kw, dataset_name=name)))

@@ -1,6 +1,7 @@
-"""The port's rules: it imports neither ``jax`` nor ``vf_nerf_tpu`` and
-loads no library from the root ``csrc/``, its entry points refuse to run
-without CUDA unless asked for the CPU, a CUDA tensor never reaches a
+"""The port's rules: it imports neither ``jax`` nor ``vf_nerf_tpu`` (the
+loaders, the JPEG codec and the joint stage included) and loads no library
+from the root ``csrc/``, its entry points (the joint stage's too) refuse to
+run without CUDA unless asked for the CPU, a CUDA tensor never reaches a
 kernel's plain version, a failed host build raises instead of falling back
 to numpy, and the parts outside this slice raise ``NotImplementedError``.
 
@@ -37,8 +38,21 @@ import numpy as np
 import vf_nerf_torch
 import vf_nerf_torch.evaluation.evaluate
 import vf_nerf_torch.evaluation.mc.pipeline
+import vf_nerf_torch.ops.projector
+import vf_nerf_torch.train.joint_exp_runner
+import vf_nerf_torch.utils.geometry
 from vf_nerf_torch.config import parse_config
+from vf_nerf_torch.datasets import dataset_dict
 from vf_nerf_torch.models.nerf import VectorFieldNerf
+from vf_nerf_torch.utils import jpeg
+
+# The loaders' JPEG path through the host library csrc/jpeg.cpp.
+img = (np.arange(8 * 12 * 3) % 251).astype(np.uint8).reshape(8, 12, 3)
+decoded = jpeg.decode_jpeg(jpeg.encode_jpeg(img))
+assert decoded.shape == img.shape
+assert np.array_equal(decoded, jpeg.decode_jpeg_numpy(jpeg.encode_jpeg(img)))
+assert sorted(dataset_dict) == ["replica", "scannet", "synthetic",
+                                "synthetic_office"]
 
 cfg = parse_config(scene="s", config_path={CONF!r}).vf_nerf_config
 cfg.vf_net_config.dimensions = [64, 64, 64]
@@ -108,7 +122,20 @@ def _entry_point_calls(tmp_path):
 
     assert config_device(runner_config()) == "cuda"
     assert config_device(runner_config("cpu")) == "cpu"
+    def joint_runner():
+        from vf_nerf_torch.config.joint_parser import \
+            parse_config as joint_config
+        from vf_nerf_torch.train.joint_runner import JointOptimizationRunner
+        cfg = joint_config(scene="s", vf_config_path=CONF,
+                           joint_config_path=str(
+                               ROOT / "confs" / "joint_optimization.conf"),
+                           timestamp="t", offline=True)
+        cfg.vf_config.dataset_config.dataset_name = "synthetic"
+        cfg.vf_config.exps_folder = str(tmp_path / "exps")
+        return JointOptimizationRunner(cfg)
+
     return {
+        "joint": joint_runner,
         "runner": lambda: VectorFieldNerfRunner(runner_config()),
         "vf_init": lambda: fit_vf_init(default_vf_config(), "exterior_scene",
                                        [0, 0, 0], 1.0, 1.0, steps=1),
@@ -117,11 +144,12 @@ def _entry_point_calls(tmp_path):
     }
 
 
-@pytest.mark.parametrize("entry", ["runner", "vf_init", "evaluate"])
+@pytest.mark.parametrize("entry", ["runner", "vf_init", "evaluate",
+                                   "joint"])
 def test_train_and_eval_entry_points_default_to_cuda(entry, tmp_path):
-    """Without ``device="cpu"`` or ``--gpu cpu`` the runner, the VF-init fit
-    and the evaluation run on CUDA, and without a card they raise before
-    writing anything."""
+    """Without ``device="cpu"`` or ``--gpu cpu`` the runner, the VF-init fit,
+    the evaluation and the joint stage run on CUDA, and without a card they
+    raise before writing anything."""
     call = _entry_point_calls(tmp_path)[entry]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is CUDA there")
@@ -297,7 +325,10 @@ def _host_calls():
     tris = np.random.RandomState(0).rand(4, 3, 3)
     verts = np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]], np.float32)
     faces = np.array([[0, 1, 2]], np.int32)
+    from vf_nerf_torch.utils import jpeg
+    data = jpeg.encode_jpeg(np.zeros((8, 8, 3), np.uint8))
     return {
+        "decode_jpeg": lambda: jpeg.decode_jpeg(data),
         "emit_triangles": lambda: contrastive.emit_triangles(gv, vv),
         "dedup_mesh": lambda: contrastive.dedup_mesh(tris),
         "render_depth": lambda: renderer.render_depth(
@@ -306,7 +337,7 @@ def _host_calls():
 
 
 @pytest.mark.parametrize("call", ["emit_triangles", "dedup_mesh",
-                                  "render_depth"])
+                                  "render_depth", "decode_jpeg"])
 def test_a_failed_host_build_raises_and_never_falls_back(call, monkeypatch,
                                                          tmp_path):
     """Without g++ (and no library built for the source hash) each host
@@ -314,12 +345,14 @@ def test_a_failed_host_build_raises_and_never_falls_back(call, monkeypatch,
     is written."""
     from vf_nerf_torch.evaluation import renderer
     from vf_nerf_torch.evaluation.mc import contrastive
+    from vf_nerf_torch.utils import jpeg
 
     def fell_back(*args, **kwargs):
         raise AssertionError("a host path fell back to numpy")
 
     monkeypatch.setattr(contrastive, "emit_triangles_numpy", fell_back)
     monkeypatch.setattr(renderer, "_render_depth_numpy", fell_back)
+    monkeypatch.setattr(jpeg, "decode_jpeg_numpy", fell_back)
     monkeypatch.setattr(shutil, "which", lambda _: None)
     monkeypatch.setattr(host, "BUILD_ROOT", tmp_path / "build")
     host.load_host_library.cache_clear()

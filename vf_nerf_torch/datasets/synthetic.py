@@ -8,9 +8,11 @@ the exact GT mesh. ``SyntheticOfficeDataset`` is the hard-regime stand-in for
 the reference's Replica ``office0``
 (``datasets/normal_datasets/replica_dataset.py:19``): a *non-convex*
 L-shaped room with interior occluders, a thin free-standing wall and
-higher-frequency per-object textures. The JAX package's
-writers of these scenes in Replica's and ScanNet's formats wait for the
-port of those loaders.
+higher-frequency per-object textures. ``export_replica_format`` and
+``export_scannet_format`` write either scene in those datasets' on-disk
+layouts (quality-98 4:2:0 JPEG colour frames, byte for byte what the JAX
+package's ``cv2.imwrite`` writes, and 16-bit depth PNGs), so that the real
+loaders can be driven end to end.
 
 The office scene is represented by its exact free-space boundary ∂F as a
 list of axis-aligned surface rectangles. One representation drives all
@@ -23,12 +25,17 @@ area).
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from vf_nerf_torch.config.schema import DatasetConfig
 from vf_nerf_torch.datasets.base import BaseDataset, pixel_grid
+from vf_nerf_torch.utils.io import write_png
+from vf_nerf_torch.utils.jpeg import write_jpeg
+from vf_nerf_torch.utils.ply import save_ply
 
 
 def box_mesh(half_size: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -187,6 +194,86 @@ class SyntheticBoxDataset(BaseDataset):
 
     def gt_mesh(self) -> Tuple[np.ndarray, np.ndarray]:
         return box_mesh(self.half_size)
+
+    # ------------------------------------------------- replica-format dump
+    def _frame_rgb(self, i: int) -> np.ndarray:
+        h, w = self.image_size
+        return (self.rgb_images[i].reshape(h, w, 3) * 255).astype(np.uint8)
+
+    def export_replica_format(self, root: str, scene: str = "boxroom",
+                              depth_scale: float = 1000.0) -> str:
+        """Write this scene in Replica's on-disk layout (``cam_params.json``,
+        ``<scene>/traj.txt``, ``<scene>/results/frame*.jpg`` and
+        ``depth*.png``, ``<scene>_mesh.ply``); returns the dataset folder."""
+        base = os.path.join(root, "Replica")
+        results = os.path.join(base, scene, "results")
+        os.makedirs(results, exist_ok=True)
+        h, w = self.image_size
+        cam = {"camera": {"fx": float(self.intrinsics[0, 0]),
+                          "fy": float(self.intrinsics[1, 1]),
+                          "cx": float(self.intrinsics[0, 2]),
+                          "cy": float(self.intrinsics[1, 2]),
+                          "scale": depth_scale, "w": w, "h": h}}
+        with open(os.path.join(base, "cam_params.json"), "w") as f:
+            json.dump(cam, f)
+        with open(os.path.join(base, scene, "traj.txt"), "w") as f:
+            for pose in self.poses:
+                f.write(" ".join(str(float(v))
+                                 for v in pose.reshape(-1)) + "\n")
+        for i in range(self.n_images):
+            write_jpeg(os.path.join(results, f"frame{i:06d}.jpg"),
+                       self._frame_rgb(i), quality=98)
+            depth = (self.depth_images[i].reshape(h, w) *
+                     depth_scale).astype(np.uint16)
+            write_png(os.path.join(results, f"depth{i:06d}.png"), depth)
+        verts, faces = self.gt_mesh()
+        save_ply(os.path.join(base, f"{scene}_mesh.ply"), verts, faces)
+        return base
+
+    def export_scannet_format(self, root: str, scene: str = "scene0000_00",
+                              crop_edge: int = 0,
+                              frame_stride: int = 1) -> str:
+        """Write this scene in ScanNet's on-disk layout (``color/*.jpg``,
+        ``depth/*.png`` in mm, ``pose/*.txt``,
+        ``intrinsic/intrinsic_depth.txt``, ``<scene>_vh_clean.ply``); returns
+        the scene folder.
+
+        ``frame_stride`` pads the frame index space as a real scan's frame
+        rate does: frame i lands at index ``i * frame_stride`` and the
+        indices between are symlinks to it, so the loader's every-40th
+        subsample selects exactly the ``n_images`` distinct views when
+        ``frame_stride = 40``. ``crop_edge`` is accepted for the JAX
+        signature and, as there, not applied.
+        """
+        base = os.path.join(root, "ScanNet", scene)
+        for sub in ("color", "depth", "pose", "intrinsic"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        h, w = self.image_size
+        with open(os.path.join(base, "intrinsic",
+                               "intrinsic_depth.txt"), "w") as f:
+            for row in self.intrinsics:
+                f.write(" ".join(str(float(v)) for v in row) + "\n")
+        for i in range(self.n_images):
+            idx = i * frame_stride
+            write_jpeg(os.path.join(base, "color", f"{idx:06d}.jpg"),
+                       self._frame_rgb(i), quality=98)
+            depth_mm = (self.depth_images[i].reshape(h, w) *
+                        1000.0).astype(np.uint16)
+            write_png(os.path.join(base, "depth", f"{idx:06d}.png"),
+                      depth_mm)
+            with open(os.path.join(base, "pose", f"{idx:06d}.txt"),
+                      "w") as f:
+                for row in self.poses[i]:
+                    f.write(" ".join(str(float(v)) for v in row) + "\n")
+            for j in range(1, frame_stride):
+                for sub, ext in (("color", "jpg"), ("depth", "png"),
+                                 ("pose", "txt")):
+                    os.symlink(f"{idx:06d}.{ext}",
+                               os.path.join(base, sub,
+                                            f"{idx + j:06d}.{ext}"))
+        verts, faces = self.gt_mesh()
+        save_ply(os.path.join(base, f"{scene}_vh_clean.ply"), verts, faces)
+        return base
 
 
 # ===================================================================== office

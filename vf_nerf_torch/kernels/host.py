@@ -1,8 +1,9 @@
 """Build and bind the port's host C++ libraries.
 
 ``vf_nerf_torch/csrc/meshops.cpp`` (marching-cubes triangle emission and
-vertex dedup) and ``csrc/rasterizer.cpp`` (the z-buffer depth rasterizer of
-the refuse pass) run on the host, as in the JAX package. Each is compiled by
+vertex dedup), ``csrc/rasterizer.cpp`` (the z-buffer depth rasterizer of
+the refuse pass) and ``csrc/jpeg.cpp`` (the datasets' baseline JPEG decoder)
+run on the host, as the JAX package's equivalents do. Each is compiled by
 ``g++ -O3 -shared -fPIC`` at its first use into
 ``build/host/<source hash>/lib<name>.so`` under the repository root and
 loaded with ``ctypes``; nothing is compiled or loaded when this module is
@@ -88,4 +89,16 @@ def rasterizer() -> ctypes.CDLL:
     lib.rasterize_depth.argtypes = [_P, _I64, _P, _I64, _F, _F, _F, _F, _I32,
                                     _I32, _F, _P]
     lib.rasterize_depth.restype = None
+    return lib
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """``csrc/jpeg.cpp`` with its entry points typed."""
+    lib = load_host_library("jpeg")
+    lib.vfn_jpeg_info.argtypes = [ctypes.c_char_p, _I64, _P]
+    lib.vfn_jpeg_info.restype = _I32
+    lib.vfn_jpeg_decode.argtypes = [ctypes.c_char_p, _I64, _P, _I64]
+    lib.vfn_jpeg_decode.restype = _I32
+    lib.vfn_jpeg_error.argtypes = [_I32]
+    lib.vfn_jpeg_error.restype = ctypes.c_char_p
     return lib

@@ -12,7 +12,8 @@ reference ``models/losses/vf_loss.py:13-87``). Terms, with the weights of
   ``directional_derivatives_start`` (when the predictions carry them).
 
 With static fine growth the per-sample means run over the live samples
-(``sample_mask``), which equals the unpadded means.
+(``sample_mask``), which equals the unpadded means. ``similarity_loss``
+(``vf_nerf_tpu/models/loss.py:165``) is the joint stage's.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from vf_nerf_torch.config.schema import VFLossConfig, VFLossWeights
+from vf_nerf_torch.ops.rays import normalize
 
 Term = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
@@ -111,3 +113,27 @@ def vf_loss(predictions: Dict[str, torch.Tensor],
         "norm_smaller_than_one_loss": norm_hinge_loss,
         "directional_derivatives_loss": dir_deriv_loss,
     }
+
+
+def similarity_loss(x1: torch.Tensor, x2: torch.Tensor, v1: torch.Tensor,
+                    v2: torch.Tensor) -> torch.Tensor:
+    """Point-pair field consistency (port of
+    ``vf_nerf_tpu/models/loss.py:165``; reference ``get_similarity_loss``,
+    ``models/helpers/functions.py:183-225``), used by the joint stage: each
+    point should reach its partner by walking its unit field vector for the
+    pair's distance. Pairs whose fields oppose (cosine < 0.5, without a
+    gradient) and whose miss exceeds half the largest miss (also without a
+    gradient) count, weighted by 1 − cosine; 0 when no pair does."""
+    distance = torch.linalg.vector_norm(x2 - x1, dim=1, keepdim=True)
+    x1_est = x2 + normalize(v2, dim=1) * distance
+    x2_est = x1 + normalize(v1, dim=1) * distance
+    diff = torch.linalg.vector_norm(x1 - x1_est, dim=1) + \
+        torch.linalg.vector_norm(x2 - x2_est, dim=1)
+    cos = torch.sum(normalize(v1, dim=1) * normalize(v2, dim=1),
+                    dim=1).detach()
+    gate = (cos < 0.5) & (diff > 0.5 * diff.detach().max())
+    count = torch.sum(gate)
+    weighted = torch.sum(torch.where(gate, diff * (1.0 - cos),
+                                     torch.zeros_like(diff)))
+    return torch.where(count > 0, weighted / torch.clamp(count, min=1),
+                       torch.zeros_like(weighted))

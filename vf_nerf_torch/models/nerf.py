@@ -12,8 +12,9 @@ Checkpoints (``save`` / ``load``) are ``torch.save`` blobs in the
 reference's ``.pth`` layout (``vf_net``, ``rendering_net``, ``density``,
 ``epoch``) plus the optimizer's moments and count and the fine-sample count;
 ``load_reference_pth`` reads a reference checkpoint and ``load_vf_init`` the
-VF-init ``.pkl`` that either package writes. The mesh surfaces and the joint
-stage's ``get_colors`` / ``get_weights_and_color`` are later slices.
+VF-init ``.pkl`` that either package writes. ``get_colors`` and
+``get_weights_and_color`` are the reference's support surface for the joint
+stage.
 
 The optimizer (``make_optimizer``) is the JAX package's: clip by global
 norm, Adam, and an exponential learning-rate decay per step. With fine
@@ -34,8 +35,11 @@ import torch
 from vf_nerf_torch.config.schema import SchedulerConfig, VFNerfConfig
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
                                            param_groups, render_rays)
+from vf_nerf_torch.ops import samplers
 from vf_nerf_torch.ops.annealing import annealed_window_weights
 from vf_nerf_torch.ops.density import get_beta, get_mean, get_scale
+from vf_nerf_torch.ops.ray_march import fused_ray_march
+from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
 from vf_nerf_torch.utils import checkpoint as ckpt_io
 from vf_nerf_torch.utils.weights import (load_mlp_variables,
                                          load_reference_state)
@@ -300,6 +304,70 @@ class VectorFieldNerf:
         vf_w = self.modules.vf.folded_weights()
         return torch.cat([self.modules.vf_apply_folded(vf_w, part)[:, :3]
                           for part in torch.split(pts, chunk)])
+
+    @torch.no_grad()
+    def get_colors(self, pose, pixels, intrinsics, epoch: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-sample colours on the coarse sample grid (reference
+        ``get_colors``, ``vector_field_nerf.py:341-378``): stratified depths
+        (the jitter from the facade's generator when perturb is on), the VF
+        net, the colour net. ``pose`` (R, 4, 4) or (R, 7) per ray. Returns
+        (rgb (R·S, 3), points (R·S, 3), the ray directions repeated per
+        sample (R·S, 3))."""
+        self.update_annealing(epoch)
+        statics = self.render_statics()
+        uv = self.to_device(pixels)
+        directions, ray_dirs, cam_loc = get_ray_directions_and_cam_location(
+            uv, self.to_device(pose), self.to_device(intrinsics))
+        n_rays, n = uv.shape[0], statics.n_coarse
+        t = torch.rand((n_rays, n), generator=self.generator,
+                       device=self.device) if statics.perturb else None
+        z = samplers.uniform_z_vals(n_rays, n, self.near, self.far,
+                                    perturb=statics.perturb, t=t,
+                                    device=self.device)
+        flat = samplers.points_from_z(cam_loc, directions, z).reshape(-1, 3)
+        vf_w, rn_w = self.modules.folded_weights()
+        vf_out = self.modules.vf_apply_folded(vf_w, flat)
+        feat_dim = self.config.vf_net_config.feature_vector_dims
+        dirs_rep = ray_dirs[:, None, :].expand(-1, n, -1).reshape(-1, 3)
+        rgb = self.modules.render_apply_folded(
+            rn_w, flat, vf_out[:, :3], dirs_rep, vf_out[:, 3:3 + feat_dim])
+        return rgb, flat, dirs_rep
+
+    @torch.no_grad()
+    def get_weights_and_color(self, points, repeated_ray_dirs, z_vals,
+                              epoch: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Rendering weights (R, S) and per-sample colours (R·S, 3) at given
+        points (R·S, 3) or (R, S, 3), with each ray's unit direction
+        repeated per sample and depths z (R, S) (reference
+        ``get_weights_and_color``, ``vector_field_nerf.py:405-440``): the
+        VF net, the fine pass's density and VolSDF weights (the fused ray
+        march, weights only), the colour net."""
+        self.update_annealing(epoch)
+        statics = self.render_statics()
+        z = self.to_device(z_vals)
+        n_rays, n = z.shape
+        flat = self.to_device(points).reshape(-1, 3)
+        dirs = self.to_device(repeated_ray_dirs).reshape(-1, 3)
+        vf_w, rn_w = self.modules.folded_weights()
+        vf_out = self.modules.vf_apply_folded(vf_w, flat)
+        feat_dim = self.config.vf_net_config.feature_vector_dims
+        normals = vf_out[:, :3].reshape(n_rays, n, 3).contiguous()
+        n_taps = statics.n_window
+        taps = self.to_device(self.window_weights) \
+            if statics.anneal_mode == "anneal_fine" else \
+            torch.full((n_taps,), 1.0 / n_taps, device=self.device)
+        _, _, weights = fused_ray_march(
+            normals, dirs.reshape(n_rays, n, 3)[:, 0].contiguous(),
+            z.contiguous(), None, self.modules.density.params(), taps,
+            beta_bounds=statics.beta_bounds, scale_min=statics.scale_min,
+            mean_bounds=statics.mean_bounds, cutoff=statics.cutoff,
+            dir_to_normal_th=statics.dir_to_normal_th,
+            normalize=statics.normalize_rendering)
+        rgb = self.modules.render_apply_folded(
+            rn_w, flat, vf_out[:, :3], dirs, vf_out[:, 3:3 + feat_dim])
+        return weights, rgb
 
     # ------------------------------------------------------------- logging
     @torch.no_grad()

@@ -134,13 +134,17 @@ def mlp_reference(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
 def mlp_backward_reference(weights: Weights, x: torch.Tensor,
                            acts: torch.Tensor, y: torch.Tensor,
                            dy: torch.Tensor, skip_at: Optional[int],
-                           final_act: str, need_dx: bool = True):
+                           final_act: str, need_dx: bool = True,
+                           need_weights: bool = True):
     """The backward of ``mlp_reference`` from the forward's saved values.
 
     :param acts: every hidden layer's post-ReLU output, of ``acts_shape``
         (what the kernel's save mode writes), read through ``hidden_views``.
     :param y: (N, out) the forward's output; ``dy`` its gradient.
-    :return: ([(dW (in, out), db (out,))] per layer, dx (N, in) or None).
+    :param need_weights: compute dW and db (off, their entries are None:
+        the joint stage's pose-only epochs ask for dx alone).
+    :return: ([(dW (in, out), db (out,)) or (None, None)] per layer,
+        dx (N, in) or None).
 
     The chain: the final activation's derivative (tanh' = 1 − y²,
     sigmoid' = y(1 − y)), then per layer from the last,
@@ -160,14 +164,15 @@ def mlp_backward_reference(weights: Weights, x: torch.Tensor,
     else:
         dz = dy
     rsqrt2 = 1.0 / math.sqrt(2.0)
-    grads = [None] * n
+    grads = [(None, None)] * n
     dx = None
     for i in range(n - 1, -1, -1):
         w = weights[i][0]
         h = x if i == 0 else hidden[i - 1]
-        inp = torch.cat([h, x], dim=1) / math.sqrt(2.0) \
-            if skip_at is not None and i == skip_at else h
-        grads[i] = (inp.t() @ dz, dz.sum(0))
+        if need_weights:
+            inp = torch.cat([h, x], dim=1) / math.sqrt(2.0) \
+                if skip_at is not None and i == skip_at else h
+            grads[i] = (inp.t() @ dz, dz.sum(0))
         if i == 0 and not need_dx:
             break
         dh = dz @ w.t()
@@ -253,7 +258,7 @@ class FusedMLP(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         grads, dx = mlp_backward_reference(
             weights, x, acts, y, dy, ctx.skip_at, ctx.final_act,
-            need_dx=need_dx)
+            need_dx=need_dx, need_weights=any(ctx.needs_input_grad[3:]))
         return (dx if need_dx else None, None, None) + \
             tuple(t for g in grads for t in g)
 

@@ -34,6 +34,48 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def rot_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """Rotations (N, 3, 3) → unit quaternions (N, 4) ``[w, x, y, z]``
+    (port of ``vf_nerf_tpu/ops/rays.py``): Shepperd's method, the candidate
+    built from the largest of the trace and the three diagonal
+    combinations (the first on ties)."""
+    m = rot
+    t = m[:, 0, 0] + m[:, 1, 1] + m[:, 2, 2]
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2
+
+    s = root(1.0 + t)
+    cand_w = torch.stack([0.25 * s, (m[:, 2, 1] - m[:, 1, 2]) / s,
+                          (m[:, 0, 2] - m[:, 2, 0]) / s,
+                          (m[:, 1, 0] - m[:, 0, 1]) / s], dim=1)
+    s = root(1.0 + m[:, 0, 0] - m[:, 1, 1] - m[:, 2, 2])
+    cand_x = torch.stack([(m[:, 2, 1] - m[:, 1, 2]) / s, 0.25 * s,
+                          (m[:, 0, 1] + m[:, 1, 0]) / s,
+                          (m[:, 0, 2] + m[:, 2, 0]) / s], dim=1)
+    s = root(1.0 - m[:, 0, 0] + m[:, 1, 1] - m[:, 2, 2])
+    cand_y = torch.stack([(m[:, 0, 2] - m[:, 2, 0]) / s,
+                          (m[:, 0, 1] + m[:, 1, 0]) / s, 0.25 * s,
+                          (m[:, 1, 2] + m[:, 2, 1]) / s], dim=1)
+    s = root(1.0 - m[:, 0, 0] - m[:, 1, 1] + m[:, 2, 2])
+    cand_z = torch.stack([(m[:, 1, 0] - m[:, 0, 1]) / s,
+                          (m[:, 0, 2] + m[:, 2, 0]) / s,
+                          (m[:, 1, 2] + m[:, 2, 1]) / s, 0.25 * s], dim=1)
+    cands = torch.stack([cand_w, cand_x, cand_y, cand_z], dim=1)
+    scores = torch.stack([t, m[:, 0, 0] - m[:, 1, 1] - m[:, 2, 2],
+                          m[:, 1, 1] - m[:, 0, 0] - m[:, 2, 2],
+                          m[:, 2, 2] - m[:, 0, 0] - m[:, 1, 1]], dim=1)
+    best = torch.argmax(scores, dim=1)       # the first maximum
+    q = cands[torch.arange(rot.shape[0], device=rot.device), best]
+    return normalize(q, dim=1)
+
+
+def matrix_to_pose7(pose: torch.Tensor) -> torch.Tensor:
+    """(N, 4, 4) camera-to-world → (N, 7) ``[qw, qx, qy, qz, tx, ty,
+    tz]``."""
+    return torch.cat([rot_to_quat(pose[:, :3, :3]), pose[:, :3, 3]], dim=1)
+
+
 def pose7_to_matrix(pose: torch.Tensor) -> torch.Tensor:
     """(N, 7) quaternion + translation → (N, 4, 4) camera-to-world."""
     mat = torch.eye(4, dtype=pose.dtype, device=pose.device).repeat(

@@ -1,14 +1,21 @@
 """Image, depth and JSON files (port of ``vf_nerf_tpu/utils/io.py:19-98``;
 reference ``utils/utils.py:73-150``).
 
-The JAX package writes images through ``imageio`` and plots depth with
-``matplotlib``; neither is a dependency of this package, so PNG files are
-written and read here with ``zlib`` and ``struct``:
+The JAX package reads and writes images through ``imageio`` and ``cv2`` and
+plots depth with ``matplotlib``; none is a dependency of this package, so
+PNG files are written and read here with ``zlib`` and ``struct``, and JPEG
+files with ``utils/jpeg.py``:
 
-- ``save_rgb`` writes an 8-bit RGB PNG (every row filter type 0), the pixels
-  ``imageio`` would write for the same array;
-- ``load_rgb`` reads 8-bit grey, grey + alpha, RGB and RGBA PNGs with any of
-  the five row filters, so it reads what ``imageio`` (Pillow) writes;
+- ``write_png`` writes 8-bit grey or RGB and 16-bit grey PNGs (every row
+  filter type 0), the pixels ``imageio`` or ``cv2`` would write for the same
+  array; ``read_png`` reads 8- and 16-bit grey, grey + alpha, RGB and RGBA
+  PNGs with any of the five row filters (16-bit samples are big-endian and
+  the filters work on bytes, 2 per sample);
+- ``load_rgb`` reads PNG and JPEG frames as float32 RGB in [0, 1];
+  ``load_depth`` reads a depth PNG's raw values as float32, as
+  ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does;
+- ``resize_bilinear`` is ``cv2.resize``'s ``INTER_LINEAR`` on a float64
+  image (the ScanNet loader's colour-to-depth resize);
 - ``save_depth`` writes ``<path>.npy`` and a ``<path>.png`` that is an 8-bit
   grey map of depth / max(depth), where the JAX package draws a plasma
   colour map with a colour bar (``ROADMAP.md`` §C).
@@ -48,17 +55,22 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, pixels: np.ndarray) -> None:
-    """An (H, W) grey or (H, W, 3) RGB uint8 array as an 8-bit PNG."""
+    """An (H, W) grey or (H, W, 3) RGB uint8 array as an 8-bit PNG, or an
+    (H, W) uint16 array as a 16-bit grey PNG."""
     pixels = np.ascontiguousarray(pixels)
-    if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or \
-            (pixels.ndim == 3 and pixels.shape[2] != 3):
-        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, not "
-                         f"{pixels.dtype} {pixels.shape}")
+    grey16 = pixels.dtype == np.uint16 and pixels.ndim == 2
+    rgb8 = pixels.dtype == np.uint8 and (
+        pixels.ndim == 2 or (pixels.ndim == 3 and pixels.shape[2] == 3))
+    if not (grey16 or rgb8):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8 or "
+                         f"(H, W) uint16, not {pixels.dtype} {pixels.shape}")
     h, w = pixels.shape[:2]
     colour_type = 0 if pixels.ndim == 2 else 2
-    rows = pixels.reshape(h, -1)
+    rows = pixels.astype(">u2").view(np.uint8).reshape(h, -1) if grey16 \
+        else pixels.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, 16 if grey16 else 8, colour_type,
+                         0, 0, 0)
     with open(path, "wb") as f:
         f.write(_PNG_SIGNATURE + _chunk(b"IHDR", header) +
                 _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) +
@@ -98,7 +110,7 @@ def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray,
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG as uint8 (H, W, C)."""
+    """A non-interlaced 8- or 16-bit PNG as (H, W, C) uint8 or uint16."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -118,33 +130,85 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path} has no IHDR chunk")
     w, h, depth, colour_type, _, _, interlace = header
-    if depth != 8 or colour_type not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or colour_type not in _CHANNELS or \
+            interlace != 0:
         raise NotImplementedError(
             f"{path}: bit depth {depth}, colour type {colour_type}, interlace "
-            f"{interlace}; read_png takes 8-bit non-interlaced grey, grey + "
-            "alpha, RGB and RGBA")
+            f"{interlace}; read_png takes 8- and 16-bit non-interlaced grey, "
+            "grey + alpha, RGB and RGBA")
     channels = _CHANNELS[colour_type]
-    stride = w * channels
+    bpp = channels * depth // 8          # the filters' bytes per pixel
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     raw = raw.reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
-        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev,
-                                      channels)
+        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, bpp)
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, channels)
     return out.reshape(h, w, channels)
 
 
+def read_image(path: str) -> np.ndarray:
+    """A PNG (``read_png``) or, by its ``.jpg``/``.jpeg`` name, a JPEG
+    (``utils/jpeg.py::read_jpeg``) as (H, W, C) uint8 or uint16."""
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        from vf_nerf_torch.utils.jpeg import read_jpeg
+        return read_jpeg(path)
+    return read_png(path)
+
+
 def load_rgb(path: str, transpose: bool = True) -> np.ndarray:
-    """float32 RGB in [0, 1], (3, H, W) when ``transpose``, else
-    (H, W, 3)."""
-    img = read_png(path).astype(np.float32) / 255.0
+    """float32 RGB in [0, 1] of a PNG or JPEG frame (16-bit samples over
+    65535), (3, H, W) when ``transpose``, else (H, W, 3)."""
+    img = read_image(path)
+    img = img.astype(np.float32) / (65535.0 if img.dtype == np.uint16
+                                    else 255.0)
     if img.shape[2] < 3:
         img = np.repeat(img[..., :1], 3, axis=2)
     img = img[..., :3]
     if transpose:
         img = img.transpose(2, 0, 1)
     return img
+
+
+def load_depth(path: str) -> np.ndarray:
+    """A depth PNG's raw values as (H, W) float32 (callers divide by the
+    dataset's depth scale); ``cv2.IMREAD_UNCHANGED`` semantics."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    img = read_png(path)
+    return (img[..., 0] if img.shape[2] == 1 else img).astype(np.float32)
+
+
+def resize_bilinear(image: np.ndarray, height: int, width: int
+                    ) -> np.ndarray:
+    """``cv2.resize(image, (width, height))`` (``INTER_LINEAR``) of an
+    (H, W) or (H, W, C) float64 image: half-pixel centres, the row pass then
+    the column pass, in float64. Source columns are clamped to the border
+    with their weight moved onto the clamped pixel; source rows are clamped
+    and keep their weights, as OpenCV fetches them."""
+    src = np.asarray(image, np.float64)
+    h, w = src.shape[:2]
+    if (h, w) == (height, width):
+        return src.copy()
+    extra = (1,) * (src.ndim - 2)
+
+    pos = (np.arange(width) + 0.5) * (w / width) - 0.5
+    x0 = np.floor(pos).astype(np.int64)
+    fx = pos - x0
+    fx[(x0 < 0) | (x0 >= w - 1)] = 0.0
+    x0 = np.clip(x0, 0, w - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    rows = src[:, x0] * (1.0 - fx).reshape((1, -1) + extra) + \
+        src[:, x1] * fx.reshape((1, -1) + extra)
+
+    pos = (np.arange(height) + 0.5) * (h / height) - 0.5
+    y0 = np.floor(pos).astype(np.int64)
+    fy = pos - y0
+    return rows[np.clip(y0, 0, h - 1)] * (1.0 - fy).reshape((-1, 1) + extra) \
+        + rows[np.clip(y0 + 1, 0, h - 1)] * fy.reshape((-1, 1) + extra)
 
 
 def save_rgb(path: str, image: np.ndarray) -> None:
