@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive vf_nerf_torch's eval render, training step, VF init, training
-runner, image evaluation, mesh stack, Replica/ScanNet loaders and joint
-pose-and-field stage on one CUDA card, and check their kernels.
+runner, image evaluation, mesh stack, Replica/ScanNet loaders, joint
+pose-and-field stage and unfolded training modes on one CUDA card, and
+check their kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, nvcc and g++; it builds the kernels and the host libraries from
@@ -101,8 +102,9 @@ Phases, each printing one JSON line:
    mesh", 256, num_quadrants=8)`` of ``latest`` (three variants: exactly
    3 x 8 x ceil(256^3 / GRID_CHUNK) fused-MLP launches and no ray march),
    plain MC of ``latest`` at res 256, the plain quadrant merge of ``0``,
-   then ``tsdf-mesh`` and ``3d-metrics`` (1 M samples) of both and the
-   quadrant merge's F-score (``metrics_3d_no_vf`` without ICP): every
+   then ``tsdf-mesh`` and ``3d-metrics`` (1 M samples for ``latest``,
+   ``EPOCH0_METRIC_SAMPLES`` for ``0``) of both and the quadrant merge's
+   F-score (``metrics_3d_no_vf`` without ICP): every
    artifact and JSON key, non-empty meshes, both trained F-scores above
    epoch 0's; seconds per octant of the device stages and of the host
    tail, the host tail's share hidden behind the next octant, peak memory,
@@ -137,8 +139,35 @@ Phases, each printing one JSON line:
    beside JAX's 0.020 -> 0.030, not checked); ms per step of each phase,
    rays/s, the busy share over one more epoch; then two 2-epoch runs with
    a supervision block every epoch, self-supervised and with the bases
-   from a res-128 marching-cubes mesh, all finite, their seconds.
-   Phases 10-15 write under ``build/smoke_run`` and delete it at the end.
+   from a res-128 marching-cubes mesh, all finite, their seconds;
+16. train_modes: the unfolded training modes of the shipped conf at its
+   widths, 1024 rays, perturb and supervision on, the directional-
+   derivative (DD) weight 0.1 from epoch 0: analytic DD (train-mode
+   BatchNorm, 100 + 30 samples unpadded: 0 fused-MLP, 2 march and 1 march-
+   backward launches per step), numerical DD (frozen BatchNorm: 11 / 2 /
+   1), weight norm and ``rendering = "nerf"`` (static growth, 200 padded
+   samples with 30 live: 5 / 2 / 1 and 5 / 0 / 0): per mode the exact
+   launches and CUDA kernels of one step; the loss, every gradient and the
+   running-statistic updates of a 256-ray step against the CPU plain path
+   in float32 and float64 (the loss as phase 9 holds it, or for the
+   numerical Jacobian within twice the CPU float32 path's distance from
+   float64; each gradient and statistic within max(1e-3, ``MODE_SPREAD``
+   = 2 x the CPU float32 path's worst distance) of float64; gradients that
+   are zero in exact arithmetic, the biases before a train-mode BatchNorm,
+   within 1e-6 of the largest); ms per step,
+   rays/s, peak memory, busy share over 3 steps. Then the march and its
+   backward at (1024, 130 / 155 / 200) with ``n_valid`` None and
+   ``FusedMLP`` under the weight-norm fold (204,800 points), the frozen
+   fold (133,120) and at the joint step's 158,720 points, each against its
+   plain version with its times and bound; then ``VectorFieldNerfRunner``
+   with analytic DD on the box scene from phase 10's init for 10 epochs,
+   the fine count +5 at epochs 0 and 5 (0 / 2 / 1 launches per step, the
+   last 3 epochs' loss below the first 3's, the running statistics moved
+   and finite, a resume from ``latest`` equal bit for bit).
+   Phases 10-16 write under ``build/smoke_run`` and delete it at the end.
+
+``python3 chip_smoke.py --train-modes`` runs the build, phase 10 and phase
+16 alone (``chiprun_out/train_modes.json``).
 
 ``python3 chip_smoke.py --joint-scan [--epochs 60 120 240 480] [--scene
 smoke|efficacy] [--resume-at N] [--seeds 0 1 ...]`` runs a study instead:
@@ -191,6 +220,7 @@ from vf_nerf_torch.evaluation.mc.device_pipeline import (GRID_CHUNK,
 from vf_nerf_torch.evaluation.mc.pipeline import quadrant_translations
 from vf_nerf_torch.kernels import load_library
 from vf_nerf_torch.models.nerf import VectorFieldNerf
+from vf_nerf_torch.models.networks import WeightNormLinear, dense_and_norm
 from vf_nerf_torch.models.renderer import draw_uniforms, render_rays
 from vf_nerf_torch.ops.density import DensityParams
 from vf_nerf_torch.ops.embedding import positional_encoding
@@ -250,6 +280,11 @@ RUN_DIR = ROOT / "build" / "smoke_run"
 # results/office_r5.json), and one octant at res 64 held to the CPU.
 MESH_RES = 256
 HOLD_RES = 64
+# The epoch-0 checkpoint's noisy meshes are scored on 200,000 surface
+# samples, not 1 M: only its F-scores' gap to the trained ones is checked
+# (0.12 / 0.13 against 0.65 / 0.81), and at 1 M their host scoring took
+# 200 of the script's 566 s.
+EPOCH0_METRIC_SAMPLES = 200_000
 # Gradients, as max |Δg| / max |g| per tensor: FusedMLP against autograd
 # through mlp_reference on the card; the step against the CPU plain path in
 # float64, within GRAD_TOL or the CPU float32 path's own worst distance from
@@ -375,12 +410,15 @@ def runner_config():
 
 
 def gain_vf(model: VectorFieldNerf, gain: float) -> None:
-    """Scale the VF net's kernels by ``gain``."""
+    """Scale the VF net's kernels by ``gain`` (under weight norm, its
+    ``g``)."""
     with torch.no_grad():
         for layer in model.modules.vf.layers:
-            lin = layer[0] if isinstance(layer, torch.nn.Sequential) \
-                else layer
-            lin.weight.mul_(gain)
+            dense, _ = dense_and_norm(layer)
+            if isinstance(dense, WeightNormLinear):
+                dense.weight_g.mul_(gain)
+            else:
+                dense.weight.mul_(gain)
 
 
 def build_model(device) -> VectorFieldNerf:
@@ -1704,6 +1742,9 @@ def phase_mesh() -> dict:
     for cfg in (latest, first):
         ckpt = cfg.checkpoint
         progress(f"mesh: tsdf-mesh, 3d-metrics and the MC F-score of {ckpt}")
+        samples = None if cfg is latest else EPOCH0_METRIC_SAMPLES
+        if samples:
+            os.environ["VFNERF_3D_METRIC_SAMPLES"] = str(samples)
         t0 = time.perf_counter()
         evaluate(cfg, "tsdf-mesh", MESH_RES, evals, N_RAYS, 0.05, 8)
         t1 = time.perf_counter()
@@ -1723,6 +1764,7 @@ def phase_mesh() -> dict:
               f"tsdf-mesh of {ckpt}: missing files")
         mc = mesh_fscore(ev, ckpt, cfg)
         t3 = time.perf_counter()
+        os.environ.pop("VFNERF_3D_METRIC_SAMPLES", None)
         check(list(mc) == ["mc", "refused"] and
               "fscore" in mc["mc"] and "chamfer distance" in mc["mc"],
               f"metrics_3d_no_vf of {ckpt}: keys {mc}")
@@ -1732,6 +1774,7 @@ def phase_mesh() -> dict:
             tsdf_faces=len(load_ply(str(ev / "tsdf-mesh" / "tsdf.ply"))[1]),
             quadrant_mc={k: mc["mc"].get(k) for k in
                          ("fscore", "precision", "recall")},
+            metric_samples=samples or 1_000_000,
             seconds=dict(tsdf_mesh=t1 - t0, metrics_3d=t2 - t1,
                          mc_fscore=t3 - t2))
     for kind in ("tsdf", "quadrant_mc"):
@@ -2240,6 +2283,447 @@ SCAN_SCENES = {"smoke": dict(n_images=8, image_size=(32, 48)),
                "efficacy": dict(n_images=6, image_size=(96, 128))}
 
 
+# ------------------------------------------------------------ train modes
+# Phase 16: the unfolded training modes. The DD weight is the reference
+# trainer's term at 0.1 from epoch 0; the card is held to the CPU on
+# MODE_HOLD_RAYS rays of the step (the analytic step peaks at 30 GB on the
+# card at 1024 rays in float32; the CPU's float64 path would need twice).
+DD_WEIGHT = 0.1
+MODE_HOLD_RAYS = 256
+# At 256 rays of the gained field one sensitive point dominates every VF
+# gradient's float32 error, and the card's chain (cuBLAS sums in another
+# order; the fused MLP's 3xTF32 products, each rounded ~8x coarser than an
+# f32 FMA's) lands on either side of the CPU float32 chain's distance from
+# float64: 1.01, 1.05, 1.68 and 1.43 x it in the four modes (NVIDIA H100
+# 80GB HBM3, 700.00 W). So the card is held within twice that distance.
+MODE_SPREAD = 2.0
+# (conf changes, launches per step: fused MLP, ray march, march backward).
+# The DD modes run 100 + 30 samples unpadded (the runner turns static fine
+# growth off under DD); the others keep it, 200 padded with 30 live.
+TRAIN_MODES = {
+    "analytic_dd": (dict(dd=True), (0, 2, 1)),
+    "numerical_dd": (dict(dd=True, numerical=True), (11, 2, 1)),
+    "weight_norm": (dict(weight_norm=True), (5, 2, 1)),
+    "nerf": (dict(rendering="nerf"), (5, 0, 0)),
+}
+# The DD runner: 10 epochs of the box scene from phase 10's init, the fine
+# count +5 at epochs 0 and 5 (130 -> 135 -> 140 samples).
+MODES_RUNNER_EPOCHS = 10
+MODES_INCREASE_EVERY = 5
+# The joint step's points (1024 rays of 100 + 55 samples), for PERF.md's
+# joint rows.
+JOINT_POINTS = N_RAYS * 155
+
+
+def with_mode(cfg, dd=False, numerical=False, weight_norm=False,
+              rendering="volsdf"):
+    """A runner config with a train mode's changes, in place."""
+    if dd:
+        cfg.vf_loss_weights.directional_derivatives = DD_WEIGHT
+        cfg.vf_loss_config.directional_derivatives_start = 0
+    vf_cfg = cfg.vf_nerf_config
+    vf_cfg.numerical_jacobian = numerical
+    vf_cfg.vf_net_config.weight_norm = weight_norm
+    vf_cfg.rendering_net_config.weight_norm = weight_norm
+    vf_cfg.rendering = rendering
+    return cfg
+
+
+def mode_supervision(run, statics, n_rays):
+    return train.SupervisionStatics.from_config(
+        run.vf_nerf_config, "exterior_synthetic", n_rays,
+        statics.n_coarse + statics.n_fine, run.dataset_config.border_radius)
+
+
+def hold_mode_step(model, run, statics, static, dev) -> dict:
+    """One loss of ``MODE_HOLD_RAYS`` rays of the step, its gradients and
+    (in train-mode BatchNorm) its running-statistic updates on the card,
+    against the port's plain path on the CPU in float32 and float64 from
+    the same weights and draws: the loss within ``TRAIN_LOSS_RTOL`` of the
+    CPU float32 path's (numerical Jacobian: or within twice that path's
+    distance from float64), each gradient and each updated statistic within
+    max(``GRAD_TOL``, ``MODE_SPREAD`` x the CPU float32 path's worst
+    distance) of float64, relative to its max (gradients that are zero in
+    exact arithmetic: within 1e-6 of the largest)."""
+    rays = MODE_HOLD_RAYS
+    batch = {k: v[:rays] for k, v in train_batch(dev).items()}
+    sup = mode_supervision(run, statics, rays)
+    draws = train.draw_step(statics, sup, rays, model.generator, dev)
+    taps = torch.from_numpy(model.update_annealing(0)).to(dev)
+    fine = N_FINE_ACTIVE if static else None
+    n_points = (rays * (statics.n_coarse + N_FINE_ACTIVE)) // 10 \
+        if static else None
+    results = []
+    for mods, d, dt in ((model.modules, dev, torch.float32),
+                        (copy.deepcopy(model.modules).cpu(), "cpu",
+                         torch.float32),
+                        (copy.deepcopy(model.modules).cpu().double(), "cpu",
+                         torch.float64)):
+        loss_fn = train.make_loss_fn(mods, statics, sup, run.vf_loss_weights,
+                                     run.vf_loss_config)
+        total, parts, out = loss_fn(
+            {k: v.to(d, dt) for k, v in batch.items()},
+            {k: v.to(d, dt) for k, v in draws.items()}, 0, taps.to(d, dt),
+            model.near, model.far, torch.zeros(3, device=d, dtype=dt),
+            fine, n_points)
+        names = [n for n, _ in mods.named_parameters()]
+        grads = torch.autograd.grad(total, list(mods.parameters()))
+        stats = {f"{net}.{k}": v.detach().cpu().double() for net, upd in
+                 out.get("batch_stats_updates", {}).items()
+                 for k, v in upd.items()}
+        results.append((float(total.detach()),
+                        {k: float(v.detach()) for k, v in parts.items()},
+                        dict(zip(names, (g.detach().cpu().double()
+                                         for g in grads))), stats))
+        del mods, total, parts, out, grads
+    (loss, parts, card, card_stats), (cpu_loss, cpu_parts, cpu, cpu_stats), \
+        (f64_loss, _, f64, f64_stats) = results
+    # Under train-mode BatchNorm the bias of each Linear before it has a
+    # zero gradient in exact arithmetic (the normalization takes the batch
+    # mean out): float32 gives rounding noise there. Such tensors (float64
+    # max below 1e-12 of the largest) are held to 1e-6 of the largest
+    # gradient instead.
+    largest = max(float(g.abs().max()) for g in f64.values())
+    null = {n for n, g in f64.items() if float(g.abs().max()) <=
+            1e-12 * largest}
+    rows = {}
+    for kind, a, b, r in (("grad", card, cpu, f64),
+                          ("stat", card_stats, cpu_stats, f64_stats)):
+        rows[kind] = {n: dict(card_vs_f64=max_rel(a[n], r[n]),
+                              cpu_vs_f64=max_rel(b[n], r[n]))
+                      for n in r if n not in null}
+    out = dict(rays=rays, loss=loss, cpu_loss=cpu_loss, f64_loss=f64_loss,
+               parts=parts, cpu_parts=cpu_parts, null_grads=sorted(null),
+               null_grad_max=max((float(card[n].abs().max()) / largest
+                                  for n in null), default=0.0))
+    # The numerical Jacobian's float32 losses carry its central
+    # differences' noise (5e4 x each rounding): there the card's loss may
+    # instead be within twice the CPU float32 path's distance from float64.
+    check(abs(loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss) or
+          (statics.numerical_jacobian and statics.compute_dir_derivatives and
+           abs(loss - f64_loss) <= 2 * abs(cpu_loss - f64_loss)),
+          f"train mode loss {loss} vs CPU plain path {cpu_loss} (float64 "
+          f"{f64_loss})")
+    check(out["null_grad_max"] <= 1e-6,
+          f"train mode: gradients zero in exact arithmetic reach "
+          f"{out['null_grad_max']} of the largest on the card")
+    for kind, errs in rows.items():
+        if not errs:
+            continue
+        spread = max(e["cpu_vs_f64"] for e in errs.values())
+        limit = max(GRAD_TOL, MODE_SPREAD * spread)
+        over = {n: e for n, e in errs.items() if e["card_vs_f64"] > limit}
+        check(not over, f"train mode {kind}s farther from float64 than "
+              f"{limit}: {over}")
+        worst = max(errs, key=lambda n: errs[n]["card_vs_f64"])
+        out[f"{kind}s"] = len(errs)
+        out[f"worst_{kind}"] = worst
+        out[f"worst_{kind}_errs"] = errs[worst]
+        out[f"max_cpu_vs_f64_{kind}"] = spread
+    return out
+
+
+def mlp_case(name, weights, x, skip_at, act, gen) -> dict:
+    """``FusedMLP`` at a train mode's shape held against the plain version
+    (``hold_fused_mlp_training``), with the save-mode launch's time, the
+    cuBLAS chain that keeps every hidden output (``library_ms``), the plain
+    forward + backward, and the 3xTF32 bound."""
+    case = hold_fused_mlp_training(name, weights, x, skip_at, act, gen,
+                                   need_dx=False)
+    leaves, x_leaf, inputs, dy = (case[k] for k in ("leaves", "x_leaf",
+                                                    "inputs", "dy"))
+    n = x.shape[0]
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
+    hidden_width = sum(w.shape[1] for w, _ in weights[:-1])
+    nbytes = 4.0 * (n * (x.shape[1] + weights[-1][0].shape[1] +
+                         hidden_width) +
+                    sum(w.numel() + b.numel() for w, b in weights))
+    row = dict(case=name, points=n,
+               max_rel_grad_err=case["max_rel_grad_err"],
+               relu_mask_agreement=case["relu_mask_agreement"],
+               ms=cuda_ms(lambda: fused_mlp(leaves, x_leaf, skip_at, act),
+                          iters=5),
+               library_ms=cuda_ms(lambda: addmm_chain(weights, x, skip_at,
+                                                      act, keep=[]),
+                                  iters=5),
+               plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                   mlp_reference(leaves, x_leaf, skip_at, act), inputs, dy),
+                   iters=3),
+               bound_ms=max(3 * 2.0 * n * macs / PEAK_TF32_FLOPS,
+                            nbytes / PEAK_BYTES) * 1e3)
+    del case
+    return row
+
+
+def queued_ms(fn, calls: int = 50) -> float:
+    """Device ms per call of ``fn`` over ``calls`` calls enqueued behind a
+    spin kernel (``torch.cuda._sleep``), so that they run back to back on
+    the device whatever the host's enqueue costs; timed with CUDA events.
+    (``torch.profiler`` kept no record of these ~6 us kernels late in the
+    script: 0 of 20 calls, or 13.)"""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def march_case(n_samples, dev, gen) -> dict:
+    """The march forward (rgb and weights) and its backward at (1024,
+    ``n_samples``), ``n_valid`` None, against their plain versions, with
+    device times (``queued_ms``), plain times and byte bounds. (One CUDA
+    kernel per wrapper call at these shapes: the modes' steps above count
+    them.)"""
+    normals, dirs, z, rgb = march_inputs(N_RAYS, n_samples, n_samples, dev)
+    taps = torch.full((11,), 1.0 / 11, device=dev)
+    prm = DensityParams(*(torch.tensor(v, device=dev)
+                          for v in (0.5, 100.0, 0.7)))
+    kw = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0, mean_bounds=(0.6, 1.0),
+              cutoff=-0.5, dir_to_normal_th=-2.0, normalize=True)
+    out = fused_ray_march(normals, dirs, z, rgb, prm, taps, **kw)
+    ref = ray_march_reference(normals, dirs, z, rgb, prm, taps, **kw)
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    check(all(bool(torch.allclose(a, b, **MARCH_TOL))
+              for a, b in zip(out, ref)),
+          f"fused_ray_march (1024, {n_samples}) n_valid None: max abs err "
+          f"{fwd_err}")
+    st = MarchStatics((1e-4, 1e9), 1.0, (0.6, 1.0), -0.5, -2.0, True, False,
+                      None)
+    args = (normals, dirs, z, rgb, torch.tensor((0.5, 100.0, 0.7),
+                                                device=dev), taps, st,
+            torch.randn((N_RAYS, 3), generator=gen, device=dev),
+            torch.randn((N_RAYS,), generator=gen, device=dev), None)
+    got = ray_march_backward(*args)
+    got = (got[0], got[1], got[2].sum(0))
+    want = ray_march_backward_reference(*args)
+    bwd_err = 0.0
+    for name, a, b in zip(("normals", "rgb", "scalars"), got, want):
+        atol = 1e-5 * max(float(b.abs().max()), 1.0)
+        bwd_err = max(bwd_err, float((a - b).abs().max()))
+        check(bool(torch.allclose(a, b, rtol=1e-4, atol=atol)),
+              f"ray_march_backward (1024, {n_samples}) n_valid None {name}: "
+              f"max abs err {float((a - b).abs().max())}")
+    fwd_ms = queued_ms(lambda: fused_ray_march(normals, dirs, z, rgb, prm,
+                                               taps, **kw))
+    bwd_ms = queued_ms(lambda: ray_march_backward(*args))
+    s = n_samples
+    fwd_bytes = 4.0 * (N_RAYS * s * 7 + N_RAYS * 3 + 11 + 3 + N_RAYS * s +
+                       N_RAYS * 4)
+    bwd_bytes = 4.0 * (N_RAYS * s * 7 + N_RAYS * 3 + N_RAYS * 4 + 11 + 3 +
+                       N_RAYS * s * 6 + N_RAYS * 3)
+    return dict(
+        samples=s, forward_max_abs_err=fwd_err,
+        backward_max_abs_err=bwd_err, forward_ms=fwd_ms,
+        forward_plain_ms=cuda_ms(lambda: ray_march_reference(
+            normals, dirs, z, rgb, prm, taps, **kw), iters=10),
+        forward_bound_ms=fwd_bytes / PEAK_BYTES * 1e3, backward_ms=bwd_ms,
+        backward_plain_ms=cuda_ms(lambda: ray_march_backward_reference(
+            *args), iters=5),
+        backward_bound_ms=bwd_bytes / PEAK_BYTES * 1e3)
+
+
+def phase_train_modes_kernels(dev) -> dict:
+    """Each kernel at the shapes the train modes give it: the march and its
+    backward at 130, 155 and 200 samples with ``n_valid`` None (the DD
+    runs' growing axis, from the first fine count to the last; 155 is also
+    the joint step's), ``FusedMLP`` over a weight-norm fold at the static
+    step's 204,800 points and over the frozen-BatchNorm fold at the
+    numerical Jacobian's 133,120, and both nets at the joint step's
+    158,720 points."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    march = [march_case(s, dev, gen) for s in (130, 155, 200)]
+    mlp = []
+    for label, changes, n in (("weight_norm", dict(weight_norm=True),
+                               N_RAYS * 200),
+                              ("numerical_dd", dict(dd=True, numerical=True),
+                               N_RAYS * 130),
+                              ("joint", {}, JOINT_POINTS)):
+        cfg = with_mode(runner_config(), **changes).vf_nerf_config
+        model = VectorFieldNerf(cfg, seed=0, device=dev)
+        gain_vf(model, VF_GAIN)
+        vf_w, rn_w = model.modules.folded_weights()
+        pts = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
+        x = positional_encoding(pts, cfg.vf_net_config.embedder_multires)
+        mlp.append(mlp_case(f"{label}_vf", vf_w, x.contiguous(),
+                            model.modules.vf.skip_at, "tanh", gen))
+        if label != "numerical_dd":
+            x = torch.rand((n, rn_w[0][0].shape[0]), generator=gen,
+                           device=dev) * 2 - 1
+            mlp.append(mlp_case(f"{label}_colour", rn_w, x, None, "sigmoid",
+                                gen))
+        del model
+        torch.cuda.empty_cache()
+    return dict(march=march, mlp=mlp)
+
+
+def phase_train_modes(pkl, dev) -> dict:
+    """The unfolded training modes of the shipped conf at its widths: per
+    mode the exact launches and CUDA kernels of one 1024-ray step, the loss,
+    gradients and running statistics against the CPU, ms per step, rays/s,
+    peak memory and the busy share; each kernel at the modes' shapes; then
+    the DD runner on the box scene from phase 10's init."""
+    modes = {}
+    batch = train_batch(dev)
+    for name, (changes, expected) in TRAIN_MODES.items():
+        progress(f"train_modes: {name}")
+        run = with_mode(runner_config(), **changes)
+        model = VectorFieldNerf(run.vf_nerf_config, seed=0, device=dev)
+        gain_vf(model, VF_GAIN)
+        model.near, model.far = 0.0, 4.0
+        dd = changes.get("dd", False)
+        if dd:
+            model.train()
+        static = not dd
+        statics = model.render_statics(
+            compute_dir_derivatives=dd,
+            n_fine=None if dd else run.vf_nerf_config.ray_sampler_config
+            .max_samples)
+        sup = mode_supervision(run, statics, N_RAYS)
+        held = hold_mode_step(model, run, statics, static, dev)
+        torch.cuda.empty_cache()
+        step = train.make_train_step(model.modules, model.optimizer, statics,
+                                     sup, run.vf_loss_weights,
+                                     run.vf_loss_config)
+        taps = torch.from_numpy(model.update_annealing(0)).to(dev)
+        fine = {"n_fine_active": N_FINE_ACTIVE} if static else {}
+
+        def one_step():
+            return step(train.zero_metric_sums(dev), batch, 0, taps,
+                        model.near, model.far, torch.zeros(3, device=dev),
+                        generator=model.generator, **fine)
+
+        one_step()
+        reset_launches()
+        counts = kernel_counts(one_step)
+        launches = read_launches()
+        want = dict(zip(("fused_mlp", "fused_ray_march",
+                         "ray_march_backward"), expected))
+        seen = {"fused_mlp": counts["fused_mlp_kernel"],
+                "fused_ray_march": counts["ray_march_kernel"],
+                "ray_march_backward": counts["ray_march_backward_kernel"]}
+        check(launches == want and seen == want,
+              f"train mode {name}: wrapper launches {launches}, CUDA "
+              f"kernels {seen}; expected {want}")
+        stats0 = {k: v.clone() for k, v in model.modules.named_buffers()}
+        sums = one_step()
+        moved = any(not torch.equal(v, stats0[k]) for k, v in
+                    model.modules.named_buffers() if "running" in k)
+        trains_bn = model.modules.training
+        check(np.isfinite(float(sums["loss"])) and moved == trains_bn,
+              f"train mode {name}: loss {float(sums['loss'])}, running "
+              f"statistics moved: {moved} (expected {trains_bn})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_iter = 5
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            one_step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_iter * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy = kernel_counts(lambda: [one_step() for _ in range(3)])
+        modes[name] = dict(
+            samples=statics.n_coarse + statics.n_fine,
+            n_valid=statics.n_coarse + N_FINE_ACTIVE if static else None,
+            shell_points=sup.n_points, launches=launches, cuda_kernels=seen,
+            hold=held, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3,
+            peak_memory_gb=peak_gb,
+            device_ms_per_step=busy["device_ms"] / 3,
+            kernels_per_step=busy["kernels"] / 3,
+            busy_share=busy["device_ms"] / (busy["seconds"] * 1e3))
+        emit(dict(phase="train_modes", mode=name, **modes[name]))
+        del model, step
+        torch.cuda.empty_cache()
+
+    progress("train_modes: kernels at the modes' shapes")
+    kernels = phase_train_modes_kernels(dev)
+    emit(dict(phase="train_modes", kernels=kernels))
+
+    progress("train_modes: the DD runner")
+    runner_launches, runner_row = modes_runner(pkl)
+    emit(dict(phase="train_modes", runner=runner_row))
+    return dict(launches=runner_launches, modes=modes, kernels=kernels,
+                runner=runner_row)
+
+
+def dd_runner_config(checkpoint: str = ""):
+    cfg = with_mode(scene_runner_config(checkpoint), dd=True)
+    cfg.expname = "smoke_dd"
+    cfg.num_epochs = MODES_RUNNER_EPOCHS
+    cfg.save_frequency = MODES_RUNNER_EPOCHS
+    cfg.vf_nerf_config.ray_sampler_config.increase_every = \
+        MODES_INCREASE_EVERY
+    return cfg
+
+
+def modes_runner(pkl) -> tuple:
+    """``VectorFieldNerfRunner.train()`` with the DD loss (analytic, train
+    BatchNorm) on the box scene from ``pkl``: its launches (0 / 2 / 1 per
+    step), the last 3 epochs' mean loss below the first 3's, the running
+    statistics moved and finite, the fine count grown twice, and a resume
+    from ``latest`` equal bit for bit."""
+    cfg = dd_runner_config()
+    runner = VectorFieldNerfRunner(cfg)
+    runner.model.load_vf_init(str(pkl))
+    before = {k: v.clone() for k, v in runner.model.modules.named_buffers()
+              if "running" in k}
+    steps = MODES_RUNNER_EPOCHS * len(runner.dataset)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == {"fused_mlp": 0, "fused_ray_march": 2 * steps,
+                       "ray_march_backward": steps},
+          f"DD runner launches {launches} over {steps} steps, expected 0 "
+          f"MLP, 2 march and 1 march backward per step")
+    with open(Path(runner.run_dir) / "metrics.jsonl") as f:
+        logged = [line for line in map(json.loads, f)
+                  if line.get("_type") == "metrics"]
+    losses = [line["loss"] for line in logged]
+    dd_losses = [line["directional_derivatives_loss"] for line in logged]
+    check(len(losses) == MODES_RUNNER_EPOCHS and
+          bool(np.isfinite(losses).all()) and
+          np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"DD runner: the last 3 epochs' mean loss is not below the first "
+          f"3's: {losses}")
+    buffers = dict(runner.model.modules.named_buffers())
+    moved = {k: float((buffers[k] - v).abs().max())
+             for k, v in before.items()}
+    finite = all(bool(torch.isfinite(buffers[k]).all()) for k in before)
+    check(finite and min(moved.values()) > 0,
+          f"DD runner: running statistics finite {finite}, least move "
+          f"{min(moved.values())}")
+    rs = cfg.vf_nerf_config.ray_sampler_config
+    fine_end = rs.n_importance + 5 * len(range(0, MODES_RUNNER_EPOCHS,
+                                               MODES_INCREASE_EVERY))
+    check(runner.model.fine_n_samples == fine_end,
+          f"DD runner: fine count {runner.model.fine_n_samples}, expected "
+          f"{fine_end}")
+    resumed = VectorFieldNerfRunner(dd_runner_config("latest"))
+    check(resumed.model.modules.training and
+          _state_equal(resumed.model, runner.model),
+          "DD runner: the resumed state differs from the trained one, or "
+          "its BatchNorm is not in train mode")
+    row = dict(epochs=MODES_RUNNER_EPOCHS, steps=steps, launches=launches,
+               seconds=seconds, ms_per_step=seconds / steps * 1e3,
+               losses=losses, dd_losses=dd_losses,
+               fine_n_samples=runner.model.fine_n_samples,
+               least_stat_move=min(moved.values()),
+               greatest_stat_move=max(moved.values()))
+    del runner, resumed
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def joint_scan(argv) -> int:
     """``--joint-scan``: how much main-stage training the joint stage's
     efficacy run needs (module docstring, last paragraph). One JSON line per
@@ -2365,13 +2849,15 @@ def main() -> int:
         mesh_launches, grid_chunk = phase_mesh()
         loader_launches = phase_loaders(pkl)
         joint_launches = phase_joint()
+        modes = phase_train_modes(pkl, dev)
     finally:
         # The checkpoints, the VF init, the depth maps and the meshes.
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     paths = {"runner": runner_launches, "train_step": train_launches,
              "render": launches, "vf_init": vf_launches,
              "eval": eval_launches, "mesh": mesh_launches,
-             "loaders": loader_launches, "joint": joint_launches}
+             "loaders": loader_launches, "joint": joint_launches,
+             "train_modes": modes["launches"]}
 
     def launch_counts(name):
         """``launches``: this slice's main path, ``VectorFieldNerfRunner.
@@ -2424,6 +2910,37 @@ def main() -> int:
     return 0
 
 
+def train_modes_only() -> int:
+    """``--train-modes``: the kernels' build, phase 10's VF init and phase
+    16 alone; the result in ``chiprun_out/train_modes.json``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi()})
+    load_library()
+    if RUN_DIR.exists():
+        shutil.rmtree(RUN_DIR)
+    RUN_DIR.mkdir(parents=True)
+    try:
+        pkl, _, _ = phase_vf_init(dev)
+        result = phase_train_modes(pkl, dev)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "train_modes.json").write_text(json.dumps(
+        dict(result, failures=failures), indent=1))
+    print(f"chip_smoke: {len(failures)} checks failed: {failures}",
+          file=sys.stderr)
+    return 1 if failures else 0
+
+
 if __name__ == "__main__":
-    sys.exit(joint_scan(sys.argv[2:]) if sys.argv[1:2] == ["--joint-scan"]
+    if sys.argv[1:2] == ["--joint-scan"]:
+        sys.exit(joint_scan(sys.argv[2:]))
+    sys.exit(train_modes_only() if sys.argv[1:2] == ["--train-modes"]
              else main())

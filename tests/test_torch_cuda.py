@@ -620,6 +620,129 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert opt.count == 2
 
 
+# (conf changes, launches per step: fused MLP, march, march backward)
+TRAIN_MODES = {
+    "analytic_dd": (dict(dd=True), (0, 2, 1)),
+    "numerical_dd": (dict(dd=True, numerical=True), (11, 2, 1)),
+    "weight_norm": (dict(weight_norm=True), (5, 2, 1)),
+    "nerf": (dict(rendering="nerf"), (5, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("mode", list(TRAIN_MODES))
+def test_train_modes_on_card_match_cpu(cuda, mode):
+    """The unfolded training modes on 64 rays of the tiny config: the loss
+    and every gradient on the card against the CPU plain path from the same
+    weights and draws (loss rtol 1e-4 and gradients 1e-3·max|g|, as
+    ``test_train_step_on_card_matches_cpu``; the numerical Jacobian
+    multiplies each f32 rounding by 5e4, so there against float64 within
+    twice the CPU float32 path's own distance; gradients that are zero in
+    exact arithmetic, the biases before a train-mode BatchNorm, within
+    1e-6 of the largest), the running statistics of a train-mode step, and
+    each of two steps' launches."""
+    from vf_nerf_torch.models.nerf import make_optimizer, param_groups
+    from vf_nerf_torch.ops.ray_march import ray_march_backward
+    from vf_nerf_torch.parallel import train_step as ts
+    changes, expected = TRAIN_MODES[mode]
+    dd = changes.get("dd", False)
+    cfg = _tiny_config()
+    cfg.numerical_jacobian = changes.get("numerical", False)
+    cfg.rendering = changes.get("rendering", "volsdf")
+    cfg.vf_net_config.weight_norm = changes.get("weight_norm", False)
+    cfg.rendering_net_config.weight_norm = changes.get("weight_norm", False)
+    mods = VFNerfModules(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in mods.vf.layers:
+            dense = layer[0] if isinstance(layer, torch.nn.Sequential) \
+                else layer
+            (dense.weight_g if cfg.vf_net_config.weight_norm
+             else dense.weight).mul_(2.5)
+    mods.train(dd and not cfg.numerical_jacobian)
+    n_fine = 6 if dd else 16
+    statics = RenderStatics.from_config(cfg, n_fine=n_fine,
+                                        train=mods.training,
+                                        compute_dir_derivatives=dd)
+    fine = {} if dd else {"n_fine_active": 6}
+    n = 64
+    sup = ts.SupervisionStatics.from_config(
+        cfg, "exterior_synthetic", n, statics.n_coarse + statics.n_fine,
+        0.15)
+    weights = schema.VFLossWeights(rgb=2.0, depth=0.5, unit_norm=0.1,
+                                   supervision=1.0, norm_smaller_than_one=0.1,
+                                   directional_derivatives=0.1 if dd else 0)
+    loss_cfg = schema.VFLossConfig(norm_smaller_than_one_start=11000,
+                                   depth_loss_clamp=0.5,
+                                   directional_derivatives_start=0)
+    rng = np.random.RandomState(0)
+    eye = torch.eye(4).expand(n, 4, 4).contiguous()
+    intr = eye.clone()
+    intr[:, 0, 0] = intr[:, 1, 1] = 30.0
+    intr[:, 0, 2], intr[:, 1, 2] = 20.0, 15.0
+    batch = {"uv": torch.from_numpy(rng.uniform(0, 40, (n, 2)).astype(
+        np.float32)), "pose": eye, "intrinsics": intr,
+        "rgb": torch.from_numpy(rng.rand(n, 3).astype(np.float32)),
+        "depth": torch.from_numpy(rng.uniform(1, 3, (n, 1)).astype(
+            np.float32))}
+    draws = ts.draw_step(statics, sup, n, torch.Generator().manual_seed(4),
+                         "cpu")
+    gpu = copy.deepcopy(mods).to(cuda)
+    results = []
+    n_points = None if dd else (n * (statics.n_coarse + 6)) // 10
+    for m, dev, dt in ((mods, "cpu", torch.float32), (gpu, cuda,
+                                                      torch.float32),
+                       (copy.deepcopy(mods).double(), "cpu",
+                        torch.float64)):
+        loss_fn = ts.make_loss_fn(m, statics, sup, weights, loss_cfg)
+        total, _, out = loss_fn(
+            {k: v.to(dev, dt) for k, v in batch.items()},
+            {k: v.to(dev, dt) for k, v in draws.items()}, 0,
+            torch.tensor(cfg.cos_sim_weights, device=dev, dtype=dt), 0.0,
+            4.0, torch.zeros(3, device=dev, dtype=dt),
+            fine.get("n_fine_active"), n_points)
+        grads = torch.autograd.grad(total, list(m.parameters()))
+        stats = [v for upd in out.get("batch_stats_updates", {}).values()
+                 for v in upd.values()]
+        results.append((float(total.detach()), grads, stats))
+    (cpu_loss, cpu_grads, cpu_stats), (loss, grads, stats), \
+        (f64_loss, f64_grads, _) = results
+    numerical = dd and cfg.numerical_jacobian
+    if numerical:
+        assert abs(loss - f64_loss) <= 2 * abs(cpu_loss - f64_loss) or \
+            abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    else:
+        np.testing.assert_allclose(loss, cpu_loss, rtol=1e-4)
+    largest = max(float(g.abs().max()) for g in f64_grads)
+    for g, c, r in zip(grads, cpu_grads, f64_grads):
+        if float(r.abs().max()) <= 1e-12 * largest:
+            assert float(g.abs().max()) <= 1e-6 * largest
+        elif numerical:
+            assert _max_rel(g, r.float()) <= max(1e-3, 2 * _max_rel(
+                c, r.float()))
+        else:
+            assert _max_rel(g, c) <= 1e-3
+    assert len(stats) == len(cpu_stats) == (10 if mods.training else 0)
+    for a, b in zip(stats, cpu_stats):
+        assert _max_rel(a, b) <= 1e-5
+
+    opt, _ = make_optimizer(cfg.scheduler_config, 100, duplicate_vf=True)
+    opt.init(param_groups(gpu))
+    step = ts.make_train_step(gpu, opt, statics, sup, weights, loss_cfg)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for _ in range(2):
+        before = (fused_mlp.launches, fused_ray_march.launches,
+                  ray_march_backward.launches)
+        sums = step(ts.zero_metric_sums(cuda),
+                    {k: v.to(cuda) for k, v in batch.items()}, 0,
+                    torch.tensor(cfg.cos_sim_weights, device=cuda), 0.0, 4.0,
+                    torch.zeros(3, device=cuda), generator=gen, **fine)
+        torch.cuda.synchronize()
+        assert (fused_mlp.launches - before[0],
+                fused_ray_march.launches - before[1],
+                ray_march_backward.launches - before[2]) == expected
+        assert np.isfinite(float(sums["loss"]))
+    assert opt.count == 2
+
+
 # ------------------------------------------------------------ mesh stack
 
 def _box_field(half=1.0):

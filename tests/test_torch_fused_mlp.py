@@ -268,7 +268,8 @@ def test_vf_net_forward_matches_flax(shipped):
     jmods, variables, mods = shipped
     pts = np.random.RandomState(4).uniform(-1, 1, (97, 3)).astype(np.float32)
     ref = jmods.vf_apply(variables, jnp.asarray(pts), train=False)
-    ours = mods.vf(torch.from_numpy(pts))
+    ours, updates = mods.vf(torch.from_numpy(pts))
+    assert updates == {}
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), **TOL)
     folded = mods.vf_apply_folded(mods.vf.folded_weights(),
                                   torch.from_numpy(pts))
@@ -283,7 +284,9 @@ def test_render_net_forward_matches_flax(shipped):
     ref = jmods.render_apply(variables, *map(jnp.asarray,
                                              (pts, nrm, dirs, feats)),
                              train=False)
-    ours = mods.render(*map(torch.from_numpy, (pts, nrm, dirs, feats)))
+    ours, updates = mods.render(*map(torch.from_numpy,
+                                     (pts, nrm, dirs, feats)))
+    assert updates == {}
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), **TOL)
 
 

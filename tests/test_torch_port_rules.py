@@ -160,21 +160,26 @@ def test_train_and_eval_entry_points_default_to_cuda(entry, tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(rendering="nerf"), dict(train=True), dict(reuse_coarse=True),
-    dict(compute_dir_derivatives=True), "n_fine_active"])
+    dict(reuse_coarse=True), "n_fine_active", "dropout"])
 def test_unported_paths_raise(change):
-    """Each unported option raises; static fine growth is ported, and with
-    train-mode BatchNorm (which the JAX package refuses with it too) it
-    raises."""
+    """Each unported option raises: ``reuse_coarse``; static fine growth
+    with train-mode BatchNorm (which the JAX package refuses too); dropout
+    in train mode (the JAX renderer passes no dropout rng, so the JAX
+    package cannot train with it either)."""
     cfg = parse_config(scene="s", config_path=CONF).vf_nerf_config
     cfg.vf_net_config.dimensions = [48, 48]
     cfg.vf_net_config.skip_connection_in = [1]
     cfg.rendering_net_config.dimensions = [16]
+    if change == "dropout":
+        cfg.vf_net_config.dropout = True
+        cfg.vf_net_config.dropout_probability = 0.2
     mods = VFNerfModules(cfg).eval()
     statics = RenderStatics.from_config(cfg, n_fine=4, train=False)
     kw = {}
     if change == "n_fine_active":
         kw["n_fine_active"] = 2
+        statics = dataclasses.replace(statics, train=True)
+    elif change == "dropout":
         statics = dataclasses.replace(statics, train=True)
     else:
         statics = dataclasses.replace(statics, **change)
@@ -186,21 +191,12 @@ def test_unported_paths_raise(change):
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("vf_net_config", "weight_norm", True),
-    ("rendering_net_config", "weight_norm", True),
     ("device_config", "compute_dtype", "bfloat16")])
 def test_unported_config_options_raise(section, field, value):
     cfg = parse_config(scene="s", config_path=CONF).vf_nerf_config
     setattr(getattr(cfg, section), field, value)
     with pytest.raises(NotImplementedError):
         VFNerfModules(cfg)
-
-
-def test_train_mode_batch_norm_raises():
-    cfg = parse_config(scene="s", config_path=CONF).vf_nerf_config
-    mods = VFNerfModules(cfg).train()
-    with pytest.raises(NotImplementedError):
-        mods.vf(torch.zeros(4, 3))
 
 
 def _fake_cuda_args(wrapper, grad=False, mode=None):

@@ -30,7 +30,6 @@ missing checkpoint raises ``FileExistsError``; and the command lines print
 their help without importing jax.
 """
 
-import dataclasses
 import json
 import os
 import subprocess
@@ -346,12 +345,10 @@ def test_missing_checkpoint_raises(trained):
 
 
 def test_unported_runner_options_raise(trained):
+    """More than one device raises (a directional-derivative weight trains
+    since it was ported: ``test_torch_train_modes_runner.py``)."""
     cfg = parse_config(scene="box", config_path=trained["conf"],
                        expname="p", timestamp="x", gpu="cpu", offline=True)
-    dd = dataclasses.replace(cfg, vf_loss_weights=dataclasses.replace(
-        cfg.vf_loss_weights, directional_derivatives=0.1))
-    with pytest.raises(NotImplementedError):
-        VectorFieldNerfRunner(dd)
     cfg.vf_nerf_config.device_config.num_devices = 2
     with pytest.raises(NotImplementedError):
         VectorFieldNerfRunner(cfg)

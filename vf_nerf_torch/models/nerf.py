@@ -16,6 +16,12 @@ VF-init ``.pkl`` that either package writes. ``get_colors`` and
 ``get_weights_and_color`` are the reference's support surface for the joint
 stage.
 
+BatchNorm's mode is the modules' ``training`` flag: ``eval()`` runs it on
+the running statistics, ``train()`` on each pass's batch statistics —
+unless ``numerical_jacobian`` is set, which keeps it frozen (the JAX
+package's quirk, reference ``vector_field_nerf.py:139-150``). The running
+statistics are buffers of the nets' state dicts, so checkpoints carry them.
+
 The optimizer (``make_optimizer``) is the JAX package's: clip by global
 norm, Adam, and an exponential learning-rate decay per step. With fine
 sampling on, the reference's optimizer sees the VF net's tensors twice
@@ -34,11 +40,11 @@ import torch
 
 from vf_nerf_torch.config.schema import SchedulerConfig, VFNerfConfig
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
-                                           param_groups, render_rays)
+                                           param_groups, render_rays,
+                                           weights_and_composite)
 from vf_nerf_torch.ops import samplers
 from vf_nerf_torch.ops.annealing import annealed_window_weights
 from vf_nerf_torch.ops.density import get_beta, get_mean, get_scale
-from vf_nerf_torch.ops.ray_march import fused_ray_march
 from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
 from vf_nerf_torch.utils import checkpoint as ckpt_io
 from vf_nerf_torch.utils.weights import (load_mlp_variables,
@@ -225,9 +231,13 @@ class VectorFieldNerf:
         """Optimizer steps taken."""
         return self.optimizer.count
 
+    def train(self) -> None:
+        """BatchNorm on batch statistics, unless ``numerical_jacobian``
+        keeps it frozen (JAX ``VectorFieldNerf.train``)."""
+        self.modules.train(not self.config.numerical_jacobian)
+
     def eval(self) -> None:
-        """BatchNorm on running statistics (the only mode ported; training
-        runs with it frozen, as the shipped conf trains)."""
+        """BatchNorm on its running statistics."""
         self.modules.eval()
 
     def update_annealing(self, epoch: int) -> np.ndarray:
@@ -238,13 +248,30 @@ class VectorFieldNerf:
             self.config.anneal_start, self.config.anneal_end, epoch)
         return self.window_weights
 
-    def render_statics(self, white_background: bool = False,
+    def render_statics(self, train: Optional[bool] = None,
+                       white_background: bool = False,
+                       compute_dir_derivatives: bool = False,
                        n_fine: Optional[int] = None) -> RenderStatics:
+        """The statics at the fine count (``n_fine`` or the current one) and
+        BatchNorm mode (``train`` or the modules', as JAX
+        ``render_statics``)."""
         return RenderStatics.from_config(
             self.config,
             n_fine=self.fine_n_samples if n_fine is None else n_fine,
-            train=self.modules.training,
-            white_background=white_background)
+            train=self.modules.training if train is None else train,
+            white_background=white_background,
+            compute_dir_derivatives=compute_dir_derivatives)
+
+    def _nets(self, statics: RenderStatics):
+        """(VF net, colour net) as callables of this BatchNorm mode: the
+        fused MLP over folded weights, or the unfolded nets."""
+        mods = self.modules
+        if mods.supports_folding(statics):
+            vf_w, rn_w = mods.folded_weights()
+            return (lambda p: mods.vf_apply_folded(vf_w, p),
+                    lambda *a: mods.render_apply_folded(rn_w, *a))
+        return (lambda p: mods.vf_apply(p, statics.train),
+                lambda *a: mods.render_apply(*a, statics.train))
 
     def to_device(self, x) -> torch.Tensor:
         """f32 on the facade's device. Host data goes through pinned memory
@@ -326,12 +353,12 @@ class VectorFieldNerf:
                                     perturb=statics.perturb, t=t,
                                     device=self.device)
         flat = samplers.points_from_z(cam_loc, directions, z).reshape(-1, 3)
-        vf_w, rn_w = self.modules.folded_weights()
-        vf_out = self.modules.vf_apply_folded(vf_w, flat)
+        vf_net, colour_net = self._nets(statics)
+        vf_out = vf_net(flat)
         feat_dim = self.config.vf_net_config.feature_vector_dims
         dirs_rep = ray_dirs[:, None, :].expand(-1, n, -1).reshape(-1, 3)
-        rgb = self.modules.render_apply_folded(
-            rn_w, flat, vf_out[:, :3], dirs_rep, vf_out[:, 3:3 + feat_dim])
+        rgb = colour_net(flat, vf_out[:, :3], dirs_rep,
+                         vf_out[:, 3:3 + feat_dim])
         return rgb, flat, dirs_rep
 
     @torch.no_grad()
@@ -342,31 +369,27 @@ class VectorFieldNerf:
         points (R·S, 3) or (R, S, 3), with each ray's unit direction
         repeated per sample and depths z (R, S) (reference
         ``get_weights_and_color``, ``vector_field_nerf.py:405-440``): the
-        VF net, the fine pass's density and VolSDF weights (the fused ray
-        march, weights only), the colour net."""
+        VF net, the fine pass's density and weights (for volsdf the fused
+        ray march, weights only; for nerf the plain density and
+        ``nerf_volume_rendering``), the colour net."""
         self.update_annealing(epoch)
         statics = self.render_statics()
         z = self.to_device(z_vals)
         n_rays, n = z.shape
         flat = self.to_device(points).reshape(-1, 3)
         dirs = self.to_device(repeated_ray_dirs).reshape(-1, 3)
-        vf_w, rn_w = self.modules.folded_weights()
-        vf_out = self.modules.vf_apply_folded(vf_w, flat)
+        vf_net, colour_net = self._nets(statics)
+        vf_out = vf_net(flat)
         feat_dim = self.config.vf_net_config.feature_vector_dims
         normals = vf_out[:, :3].reshape(n_rays, n, 3).contiguous()
         n_taps = statics.n_window
         taps = self.to_device(self.window_weights) \
             if statics.anneal_mode == "anneal_fine" else \
             torch.full((n_taps,), 1.0 / n_taps, device=self.device)
-        _, _, weights = fused_ray_march(
-            normals, dirs.reshape(n_rays, n, 3)[:, 0].contiguous(),
-            z.contiguous(), None, self.modules.density.params(), taps,
-            beta_bounds=statics.beta_bounds, scale_min=statics.scale_min,
-            mean_bounds=statics.mean_bounds, cutoff=statics.cutoff,
-            dir_to_normal_th=statics.dir_to_normal_th,
-            normalize=statics.normalize_rendering)
-        rgb = self.modules.render_apply_folded(
-            rn_w, flat, vf_out[:, :3], dirs, vf_out[:, 3:3 + feat_dim])
+        _, _, weights = weights_and_composite(
+            statics, normals, dirs.reshape(n_rays, n, 3)[:, 0].contiguous(),
+            z.contiguous(), None, self.modules.density.params(), taps)
+        rgb = colour_net(flat, vf_out[:, :3], dirs, vf_out[:, 3:3 + feat_dim])
         return weights, rgb
 
     # ------------------------------------------------------------- logging

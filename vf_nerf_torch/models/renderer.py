@@ -1,33 +1,48 @@
-"""The render of a batch of rays with BatchNorm folded (port of
-``render_rays`` in ``vf_nerf_tpu/models/renderer.py``; reference
-``VectorFieldNerf.render``, ``models/nerf/vector_field_nerf.py:216-338``).
+"""The render of a batch of rays (port of ``render_rays`` in
+``vf_nerf_tpu/models/renderer.py``; reference ``VectorFieldNerf.render``,
+``models/nerf/vector_field_nerf.py:216-338``).
 
-ray gen → stratified coarse depths → VF net (fused MLP) → fused ray march for
-the coarse weights → argmax-range fine depths → VF net on all samples → colour
-net (fused MLP) → fused ray march for the composite. On CUDA tensors the two
-fused ops launch their kernels: 3 MLP launches and 2 march launches per call.
+ray gen → stratified coarse depths → VF net → coarse weights → argmax-range
+fine depths → VF net on all samples → colour net → weights and composite.
+
+Folded (``VFNerfModules.supports_folding``: BatchNorm on its running
+statistics or absent, and no forward-mode Jacobian): the nets run as the
+fused MLP over folded weights (BatchNorm, and weight norm's ``g·v/‖v‖``),
+so a call on CUDA tensors launches 3 MLP kernels (6 more for a numerical
+Jacobian). Unfolded (train-mode BatchNorm, or the analytic Jacobian): the
+nets run as ``torch.matmul`` and a functional BatchNorm on each pass's own
+batch statistics, as the JAX package runs them outside any kernel; the fine
+VF and colour passes return the new running statistics
+(``batch_stats_updates``), the coarse and Jacobian passes throw theirs
+away. With ``rendering = "volsdf"`` the weights and the composite are the
+fused ray march (2 launches, and its backward kernel for the gradient);
+``"nerf"`` takes the plain density and ``nerf_volume_rendering``, as the
+JAX package does (its march is volsdf-only).
 
 The same function is the eval render and the training step's forward. With
-``grad=True`` the fine pass builds the autograd graph through the folded
-weights to the Linear and BatchNorm parameters and the density scalars
-(frozen BatchNorm, as the shipped conf trains: its directional-derivative
-weight is 0); the coarse pass only steers the fine sampler and runs without
-gradients, as the JAX package stops them. This port honours
-``rendering.detach_normals`` on that path; the JAX package's folded path
-does not (``ROADMAP.md`` §C), its unfolded path does.
+``grad=True`` the fine pass builds the autograd graph to the nets'
+parameters and the density scalars; the coarse pass only steers the fine
+sampler and runs without gradients, as the JAX package stops them. This
+port honours ``rendering.detach_normals`` on every path; the JAX
+package's folded path does not (``ROADMAP.md`` §C), its unfolded path does.
+
+``compute_dir_derivatives``: the field's Jacobian at the fine points,
+analytic (``vf_jacobian``) or by central differences
+(``numerical_jacobian``), and ``dir_derivative_norms``, the norms of its
+products with two tangents of each normal.
 
 Static fine growth: ``n_fine_active`` live fine samples out of the padded
-``statics.n_fine``; the pad depths sort to the ray's tail, the march masks
-them (``n_valid``), and ``sample_mask`` marks the live samples for the
-loss.
+``statics.n_fine``; the pad depths sort to the ray's tail, the weights
+mask them (``n_valid``), and ``sample_mask`` marks the live samples for the
+loss. Train-mode BatchNorm refuses it, as the JAX package does: the pad
+points would enter the batch statistics.
 
 Reference quirks kept: the density uses a uniform ``1/W`` window unless
 ``anneal_fine`` on the fine pass; back-facing samples are suppressed; the
 last sample's σ is 0; the effective density cutoff is −0.5, not the conf's.
 
-Not ported, raising ``NotImplementedError``: train-mode BatchNorm,
-``rendering="nerf"``, ``reuse_coarse``, directional derivatives, bf16
-compute, weight norm.
+Not ported, raising ``NotImplementedError``: ``reuse_coarse``, bf16
+compute.
 """
 
 from __future__ import annotations
@@ -39,25 +54,28 @@ import torch
 from torch import nn
 
 from vf_nerf_torch.config.schema import VFNerfConfig
-from vf_nerf_torch.models.networks import RenderingMLP, VectorFieldMLP
-from vf_nerf_torch.ops import samplers
+from vf_nerf_torch.models.networks import (RenderingMLP, Updates,
+                                           VectorFieldMLP,
+                                           directional_derivatives,
+                                           numerical_vf_jacobian, vf_jacobian)
+from vf_nerf_torch.ops import compositing, samplers
 from vf_nerf_torch.ops.density import LaplaceDensity
 from vf_nerf_torch.ops.embedding import positional_encoding
 from vf_nerf_torch.ops.fused_mlp import Weights, fused_mlp
-from vf_nerf_torch.ops.ray_march import fused_ray_march
+from vf_nerf_torch.ops.ray_march import fused_ray_march, sample_density
 from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderStatics:
     """The render's static configuration (the JAX package's fields that
-    the folded eval render reads or refuses)."""
+    the port reads or refuses)."""
 
     n_coarse: int
     n_fine: int
     n_window: int
     perturb: bool
-    rendering: str                 # "volsdf" ("nerf" is not ported)
+    rendering: str                 # "volsdf" or "nerf"
     normalize_rendering: bool
     dir_to_normal_th: float
     cutoff: float
@@ -69,10 +87,13 @@ class RenderStatics:
     white_background: bool
     train: bool
     reuse_coarse: bool = False
+    numerical_jacobian: bool = False
 
     @staticmethod
     def from_config(cfg: VFNerfConfig, n_fine: int, train: bool,
-                    white_background: bool = False) -> "RenderStatics":
+                    white_background: bool = False,
+                    compute_dir_derivatives: bool = False
+                    ) -> "RenderStatics":
         rs = cfg.ray_sampler_config
         d = cfg.density_config
         # The reference never forwards the conf's cutoff to its density
@@ -91,9 +112,10 @@ class RenderStatics:
             scale_min=d.scale_min,
             mean_bounds=tuple(d.mean_bounds),
             anneal_mode=cfg.cos_sim_weights_anneal,
-            compute_dir_derivatives=False,
+            compute_dir_derivatives=compute_dir_derivatives,
             white_background=white_background,
             train=train,
+            numerical_jacobian=cfg.numerical_jacobian,
         )
 
 
@@ -113,10 +135,20 @@ class VFNerfModules(nn.Module):
                                    generator=generator)
         self.density = LaplaceDensity(cfg.density_config.params_init)
 
+    def supports_folding(self, statics: RenderStatics) -> bool:
+        """Whether the render runs the fused MLP over folded weights: its
+        BatchNorm is on the running statistics (or absent) and no
+        forward-mode Jacobian is asked for (the JAX condition,
+        ``renderer.py:367-370``, less weight norm, which folds exactly
+        here: the JAX package computes ``x @ (v·g/‖v‖) + b``)."""
+        analytic = statics.compute_dir_derivatives and \
+            not statics.numerical_jacobian
+        return not statics.train and not analytic
+
     def folded_weights(self, detach: bool = True
                        ) -> Tuple[Weights, Weights]:
-        """Eval-mode BatchNorm folded into both nets' dense weights
-        (``detach=False``: on the autograd graph)."""
+        """Eval-mode BatchNorm and weight norm folded into both nets'
+        dense weights (``detach=False``: on the autograd graph)."""
         return (self.vf.folded_weights(detach),
                 self.render.folded_weights(detach))
 
@@ -133,6 +165,24 @@ class VFNerfModules(nn.Module):
         return fused_mlp(rn_weights, x.contiguous(), skip_at=None,
                          final_act="sigmoid")
 
+    def vf_apply(self, points: torch.Tensor, train: bool) -> torch.Tensor:
+        """The unfolded VF net; in train mode on the batch's statistics,
+        whose running update is thrown away (JAX ``vf_apply``; the nets'
+        forward returns the update as well, JAX ``vf_apply_mutable``)."""
+        return self.vf(points, train, keep_stats=False)[0]
+
+    def render_apply(self, points, normals, view_dirs, feats,
+                     train: bool) -> torch.Tensor:
+        return self.render(points, normals, view_dirs, feats, train,
+                           keep_stats=False)[0]
+
+    @torch.no_grad()
+    def apply_batch_stats(self, updates: Dict[str, Updates]) -> None:
+        """Keep the running statistics of ``batch_stats_updates``."""
+        for name, net in (("vf", self.vf), ("render", self.render)):
+            if updates.get(name):
+                net.apply_updates(updates[name])
+
 
 def param_groups(modules: VFNerfModules) -> Dict[str, List[nn.Parameter]]:
     """The trainable tensors by the JAX params tree's top-level keys: the
@@ -144,15 +194,8 @@ def param_groups(modules: VFNerfModules) -> Dict[str, List[nn.Parameter]]:
 
 
 def _check_statics(statics: RenderStatics) -> None:
-    unported = {
-        "train-mode BatchNorm (statics.train)": statics.train,
-        f"rendering={statics.rendering!r}": statics.rendering != "volsdf",
-        "reuse_coarse": statics.reuse_coarse,
-        "directional derivatives": statics.compute_dir_derivatives,
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if statics.reuse_coarse:
+        raise NotImplementedError("reuse_coarse is not ported yet")
 
 
 def draw_uniforms(statics: RenderStatics, n_rays: int,
@@ -168,6 +211,36 @@ def draw_uniforms(statics: RenderStatics, n_rays: int,
     t_fine = rand(statics.n_fine) if statics.perturb and has_fine else None
     u_extra = rand(statics.n_fine) if has_fine else None
     return {"t_coarse": t_coarse, "t_fine": t_fine, "u_extra": u_extra}
+
+
+def weights_and_composite(statics: RenderStatics, normals, ray_dirs,
+                          z_vals, rgb_samples, density_params, taps,
+                          n_valid: Optional[int] = None):
+    """(rgb (R, 3), depth (R,), weights (R, S)) of ``normals`` (R, S, 3)
+    along rays ``ray_dirs`` (R, 3) at depths ``z_vals``: for volsdf the
+    fused ray march, for nerf the plain density and
+    ``nerf_volume_rendering``. With ``rgb_samples`` None, the weights alone
+    (rgb and depth are None)."""
+    bounds = dict(beta_bounds=statics.beta_bounds,
+                  scale_min=statics.scale_min,
+                  mean_bounds=statics.mean_bounds, cutoff=statics.cutoff,
+                  dir_to_normal_th=statics.dir_to_normal_th)
+    if statics.rendering == "volsdf":
+        return fused_ray_march(
+            normals, ray_dirs, z_vals, rgb_samples, density_params, taps,
+            normalize=statics.normalize_rendering,
+            white_background=statics.white_background, n_valid=n_valid,
+            **bounds)
+    sigma = sample_density(normals, ray_dirs, density_params, taps,
+                           n_valid=n_valid, **bounds)
+    weights = compositing.nerf_volume_rendering(
+        z_vals, sigma, statics.normalize_rendering)
+    if rgb_samples is None:
+        return None, None, weights
+    rgb, depth = compositing.composite_rgb_depth(
+        weights, rgb_samples, z_vals,
+        white_background=statics.white_background)
+    return rgb, depth, weights
 
 
 def render_rays(modules: VFNerfModules,
@@ -198,15 +271,24 @@ def render_rays(modules: VFNerfModules,
     :param grad: build the autograd graph of the fine pass (training);
         off, the call runs under ``torch.no_grad()``.
     :param folded: the nets' folded weights (``modules.folded_weights``),
-        when the caller has them already; else they are folded here.
+        when the caller has them already and the render folds; else they
+        are folded here.
     :return: dict with rgb (R, 3), depth (R, 1), normals (R, S, 3), points
         (R, S, 3), z_vals (R, S), weights (R, S), sample_colors (R, S, 3),
         ``argmax_coarse`` (R,), the coarse-weight argmax that chose each
-        ray's fine branch, and with ``n_fine_active`` ``sample_mask`` (R, S),
-        1.0 on live samples.
+        ray's fine branch; with ``n_fine_active`` ``sample_mask`` (R, S),
+        1.0 on live samples; in train-mode BatchNorm
+        ``batch_stats_updates`` ({"vf": ..., "render": ...}, the fine
+        passes' new running statistics); with ``compute_dir_derivatives``
+        ``dir_derivative_norms`` (R·S·2,).
     """
     _check_statics(statics)
     if n_fine_active is not None:
+        if statics.train:
+            raise NotImplementedError(
+                "static fine growth with train-mode BatchNorm: the pad "
+                "points would enter the batch statistics (the JAX package "
+                "refuses it too)")
         n_fine_active = int(n_fine_active)
         if not 1 <= n_fine_active <= statics.n_fine:
             raise ValueError(f"n_fine_active must be in 1..{statics.n_fine} "
@@ -236,8 +318,10 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
         u_extra = drawn["u_extra"] if u_extra is None else u_extra
 
     density_params = modules.density.params()
-    vf_w, rn_w = folded if folded is not None else \
-        modules.folded_weights(detach=not torch.is_grad_enabled())
+    fold = modules.supports_folding(statics)
+    if fold:
+        vf_w, rn_w = folded if folded is not None else \
+            modules.folded_weights(detach=not torch.is_grad_enabled())
     directions, ray_dirs, cam_loc = get_ray_directions_and_cam_location(
         uv, pose, intrinsics)
     ray_dirs = ray_dirs.contiguous()
@@ -247,11 +331,16 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
                          device=device)
     fine_taps = window_weights if statics.anneal_mode == "anneal_fine" \
         else uniform
-    march = dict(beta_bounds=statics.beta_bounds, scale_min=statics.scale_min,
-                 mean_bounds=statics.mean_bounds, cutoff=statics.cutoff,
-                 dir_to_normal_th=statics.dir_to_normal_th,
-                 normalize=statics.normalize_rendering,
-                 white_background=statics.white_background)
+
+    def field(pts):
+        """The VF net at ``pts`` (N, 3) → (N, 3 + F), updates thrown away."""
+        if fold:
+            return modules.vf_apply_folded(vf_w, pts)
+        return modules.vf_apply(pts, statics.train)
+
+    def weigh(normals, z, rgb, taps, n_valid=None):
+        return weights_and_composite(statics, normals, ray_dirs, z, rgb,
+                                     density_params, taps, n_valid)
 
     # ---- coarse pass: steers the fine sampler only, no gradients ----------
     with torch.no_grad():
@@ -259,12 +348,9 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
             n_rays, statics.n_coarse, near, far, perturb=statics.perturb,
             t=t_coarse, device=device).contiguous()
         pts_coarse = samplers.points_from_z(cam_loc, directions, z_coarse)
-        normals_coarse = modules.vf_apply_folded(
-            vf_w, pts_coarse.reshape(-1, 3))[:, :3].reshape(
-                n_rays, statics.n_coarse, 3).contiguous()
-        _, _, weights_coarse = fused_ray_march(
-            normals_coarse, ray_dirs, z_coarse, None, density_params,
-            uniform, **march)
+        normals_coarse = field(pts_coarse.reshape(-1, 3))[:, :3].reshape(
+            n_rays, statics.n_coarse, 3).contiguous()
+        _, _, weights_coarse = weigh(normals_coarse, z_coarse, None, uniform)
         argmax_coarse = torch.argmax(weights_coarse, dim=-1)
 
     # ---- fine pass ---------------------------------------------------------
@@ -279,19 +365,28 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
     n_samples = z_vals.shape[1]
     points = samplers.points_from_z(cam_loc, directions, z_vals)
     points_flat = points.reshape(-1, 3)
-    vf_out = modules.vf_apply_folded(vf_w, points_flat)
     feat_dim = modules.cfg.vf_net_config.feature_vector_dims
-    normals_flat = vf_out[:, :3]
     dirs_flat = ray_dirs[:, None, :].expand(-1, n_samples, -1).reshape(-1, 3)
-    rgb_samples = modules.render_apply_folded(
-        rn_w, points_flat, normals_flat, dirs_flat,
-        vf_out[:, 3:3 + feat_dim]).reshape(n_rays, n_samples, 3)
+    # Train-mode BatchNorm keeps the fine passes' running statistics.
+    updates: Dict[str, Updates] = {}
+    if fold:
+        vf_out = modules.vf_apply_folded(vf_w, points_flat)
+    else:
+        vf_out, updates["vf"] = modules.vf(points_flat, statics.train)
+    normals_flat = vf_out[:, :3]
+    feats_flat = vf_out[:, 3:3 + feat_dim]
+    if fold:
+        rgb_flat = modules.render_apply_folded(
+            rn_w, points_flat, normals_flat, dirs_flat, feats_flat)
+    else:
+        rgb_flat, updates["render"] = modules.render(
+            points_flat, normals_flat, dirs_flat, feats_flat, statics.train)
+    rgb_samples = rgb_flat.reshape(n_rays, n_samples, 3)
     normals = normals_flat.reshape(n_rays, n_samples, 3).contiguous()
     n_valid = None if n_fine_active is None \
         else statics.n_coarse + n_fine_active
-    rgb, depth, weights = fused_ray_march(
-        normals, ray_dirs, z_vals, rgb_samples, density_params, fine_taps,
-        n_valid=n_valid, **march)
+    rgb, depth, weights = weigh(normals, z_vals, rgb_samples, fine_taps,
+                                n_valid=n_valid)
     out = {
         "rgb": rgb,
         "depth": depth[:, None],
@@ -306,4 +401,13 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
         live = torch.arange(n_samples, device=device) < n_valid
         out["sample_mask"] = live[None, :].to(torch.float32).expand(
             n_rays, n_samples)
+    if any(updates.values()):
+        out["batch_stats_updates"] = updates
+    if statics.compute_dir_derivatives:
+        jacobian = numerical_vf_jacobian if statics.numerical_jacobian \
+            else vf_jacobian
+        dd = directional_derivatives(normals_flat,
+                                     jacobian(field, points_flat))
+        out["dir_derivative_norms"] = torch.linalg.vector_norm(
+            dd.reshape(-1, 3), dim=-1)
     return out

@@ -26,17 +26,16 @@ from vf_nerf_torch.ops.window import (cosine_similarity,
 Outputs = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]
 
 
-def ray_march_reference(normals, ray_dirs, z_vals, rgb_samples,
-                        density_params: DensityParams, window_weights, *,
-                        beta_bounds, scale_min, mean_bounds, cutoff,
-                        dir_to_normal_th, normalize,
-                        white_background=False,
-                        n_valid: Optional[int] = None) -> Outputs:
-    """The plain chain: (rgb (R, 3), depth (R,), weights (R, S)); with
-    ``rgb_samples`` None, the weights alone (rgb and depth are None).
-    ``n_valid``: the live sample count (σ is zero from ``n_valid - 1`` on
-    and the window ends as in an unpadded ray; ``get_density``)."""
-    n_samples = z_vals.shape[1]
+def sample_density(normals, ray_dirs, density_params: DensityParams,
+                   window_weights, *, beta_bounds, scale_min, mean_bounds,
+                   cutoff, dir_to_normal_th,
+                   n_valid: Optional[int] = None) -> torch.Tensor:
+    """(R, S) densities, the plain first half of the march (the JAX
+    renderer's ``get_density``): the window cosine of neighbouring normals
+    → Laplace density minus the CDF at the cutoff → the back-face cut; σ is
+    zero from ``n_valid - 1`` on (a padded ray's live count) and on the last
+    sample."""
+    n_samples = normals.shape[1]
     dirs_rep = ray_dirs[:, None, :].expand(-1, n_samples, -1)
     cos = window_cosine_similarity(normals[:, :-1], normals[:, 1:],
                                    window_weights, n_valid=n_valid)
@@ -48,7 +47,23 @@ def ray_march_reference(normals, ray_dirs, z_vals, rgb_samples,
     if n_valid is not None:
         live = torch.arange(sigma.shape[1], device=sigma.device) < n_valid - 1
         sigma = torch.where(live[None, :], sigma, torch.zeros_like(sigma))
-    sigma = torch.cat([sigma, sigma.new_zeros((sigma.shape[0], 1))], dim=-1)
+    return torch.cat([sigma, sigma.new_zeros((sigma.shape[0], 1))], dim=-1)
+
+
+def ray_march_reference(normals, ray_dirs, z_vals, rgb_samples,
+                        density_params: DensityParams, window_weights, *,
+                        beta_bounds, scale_min, mean_bounds, cutoff,
+                        dir_to_normal_th, normalize,
+                        white_background=False,
+                        n_valid: Optional[int] = None) -> Outputs:
+    """The plain chain: (rgb (R, 3), depth (R,), weights (R, S)); with
+    ``rgb_samples`` None, the weights alone (rgb and depth are None).
+    ``n_valid``: the live sample count (σ is zero from ``n_valid - 1`` on
+    and the window ends as in an unpadded ray; ``sample_density``)."""
+    sigma = sample_density(normals, ray_dirs, density_params, window_weights,
+                           beta_bounds=beta_bounds, scale_min=scale_min,
+                           mean_bounds=mean_bounds, cutoff=cutoff,
+                           dir_to_normal_th=dir_to_normal_th, n_valid=n_valid)
     weights = compositing.volsdf_volume_rendering(z_vals, sigma, normalize)
     if rgb_samples is None:
         return None, None, weights

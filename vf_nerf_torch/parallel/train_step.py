@@ -1,13 +1,24 @@
 """The training step (port of ``vf_nerf_tpu/parallel/train_step.py:40-330``;
 reference trainer ``train/vector_field_nerf_train.py:161-260``).
 
-One step: render a ray batch with gradients (frozen BatchNorm, as the
-shipped conf trains) → the border and centre supervision of the field
-(two more VF net evaluations on sampled points) → ``vf_loss`` → gradients →
-clip, Adam and the per-step learning rate (``models/nerf.py``). On CUDA
-tensors a step launches the fused MLP 5 times (coarse VF without
-gradients, fine VF, colour net, shell VF, ball VF), the ray march twice
-(coarse weights, fine composite) and its backward once.
+One step: render a ray batch with gradients → the border and centre
+supervision of the field (two more VF net evaluations on sampled points) →
+``vf_loss`` → gradients → clip, Adam and the per-step learning rate
+(``models/nerf.py``) → with train-mode BatchNorm, the fine passes' running
+statistics kept after the optimizer (``{**stats, **updates}``, as the JAX
+step).
+
+Launches per step on CUDA tensors, volsdf: with BatchNorm frozen (the
+shipped conf) or weight norm the nets fold, and the fused MLP runs 5
+times (coarse VF without gradients, fine VF, colour net, shell VF, ball
+VF), 11 with the numerical directional-derivative Jacobian (its six ±ε VF
+passes); with train-mode BatchNorm (the analytic Jacobian) the nets run
+unfolded and the fused MLP not at all. The ray march runs twice (coarse
+weights, fine composite) and its backward once; ``rendering = "nerf"``
+takes plain weights and no march. The shell and ball passes run as the
+fine pass does (train-mode BatchNorm on their own batch, updates thrown
+away). Before ``directional_derivatives_start`` the Jacobian is skipped:
+its term is zero there, as the JAX step's ``where`` makes it.
 
 Random draws: JAX's threefry streams cannot be reproduced, so every draw
 is a tensor the caller may pass in (``draws``); otherwise ``draw_step``
@@ -74,15 +85,16 @@ def draw_step(statics: RenderStatics, sup: SupervisionStatics, n_rays: int,
     return draws
 
 
-def _supervision_terms(modules: VFNerfModules, vf_w, out: Tensors,
-                       draws: Dict[str, torch.Tensor], far, centroid,
-                       sup: SupervisionStatics,
+def _supervision_terms(field: Callable[[torch.Tensor], torch.Tensor],
+                       out: Tensors, draws: Dict[str, torch.Tensor], far,
+                       centroid, sup: SupervisionStatics,
                        n_points_active: Optional[int] = None):
     """(prediction, target, mask or None) triples of the field's
-    supervision (trainer ``:180-216``). With static fine growth the ray
-    samples' masks are ANDed with ``sample_mask`` and the shell draw is
-    masked down to its first ``n_points_active`` rows, the reference's
-    count at the live sample count."""
+    supervision (trainer ``:180-216``); ``field`` maps points (N, 3) to
+    the VF net's outputs. With static fine growth the ray samples' masks
+    are ANDed with ``sample_mask`` and the shell draw is masked down to its
+    first ``n_points_active`` rows, the reference's count at the live
+    sample count; without it the draw is the whole count, unmasked."""
     radius = sup.border_radius
     sample_mask = out.get("sample_mask")
 
@@ -96,7 +108,7 @@ def _supervision_terms(modules: VFNerfModules, vf_w, out: Tensors,
         return (rows < n_points_active).to(torch.float32)
 
     def vf_normals(pts):
-        return modules.vf_apply_folded(vf_w, pts)[:, :3]
+        return field(pts)[:, :3]
 
     terms = []
     if sup.init_method == "center":
@@ -171,24 +183,38 @@ def make_loss_fn(modules: VFNerfModules, statics: RenderStatics,
                  loss_config: VFLossConfig) -> Callable:
     """The loss the step differentiates: ``loss_fn(batch, draws, epoch,
     window_weights, near, far, centroid, n_fine_active=None,
-    n_points_active=None)`` → (total, parts, render outputs)."""
+    n_points_active=None)`` → (total, parts, render outputs); the outputs
+    carry ``batch_stats_updates`` in train-mode BatchNorm."""
+    fold = modules.supports_folding(statics)
+    no_dd = dataclasses.replace(statics, compute_dir_derivatives=False)
 
     def loss_fn(batch, draws, epoch, window_weights, near, far, centroid,
                 n_fine_active=None, n_points_active=None):
-        folded = modules.folded_weights(detach=False)
+        folded = modules.folded_weights(detach=False) if fold else None
+        dd_on = statics.compute_dir_derivatives and \
+            epoch >= loss_config.directional_derivatives_start
         out = render_rays(modules, batch["uv"], batch["pose"],
                           batch["intrinsics"], near, far, window_weights,
-                          statics, t_coarse=draws.get("t_coarse"),
+                          statics if dd_on else no_dd,
+                          t_coarse=draws.get("t_coarse"),
                           t_fine=draws.get("t_fine"),
                           u_extra=draws.get("u_extra"),
                           n_fine_active=n_fine_active, grad=True,
                           folded=folded)
-        terms = _supervision_terms(modules, folded[0], out, draws, far,
-                                   centroid, sup, n_points_active)
+        if fold:
+            def field(pts):
+                return modules.vf_apply_folded(folded[0], pts)
+        else:
+            def field(pts):
+                return modules.vf_apply(pts, statics.train)
+        terms = _supervision_terms(field, out, draws, far, centroid, sup,
+                                   n_points_active)
         predictions = {"rgb": out["rgb"], "depth": out["depth"],
                        "normals": out["normals"].reshape(-1, 3)}
         if "sample_mask" in out:
             predictions["sample_mask"] = out["sample_mask"].reshape(-1)
+        if "dir_derivative_norms" in out:
+            predictions["dir_derivative_norms"] = out["dir_derivative_norms"]
         ground_truth = {"rgb": batch["rgb"], "depth": batch.get("depth")}
         total, parts = vf_loss(predictions, ground_truth, terms,
                                loss_weights, loss_config, epoch)
@@ -203,9 +229,10 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
                     loss_config: VFLossConfig) -> Callable:
     """The step: ``step(metric_sums, batch, epoch, window_weights, near,
     far, centroid, n_fine_active=None, draws=None, generator=None)``
-    updates the modules' parameters and the optimizer in place and returns
-    the metric sums plus this step's metrics (0-d tensors on the device;
-    nothing is read back to the host).
+    updates the modules' parameters (and in train-mode BatchNorm their
+    running statistics) and the optimizer in place and returns the metric
+    sums plus this step's metrics (0-d tensors on the device; nothing is
+    read back to the host).
 
     :param batch: dict of uv (R, 2), rgb (R, 3), depth (R, 1), pose
         (R, 4, 4), intrinsics (R, 4, 4), or a packed (R, 38) tensor.
@@ -232,15 +259,17 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
         if n_fine_active is not None:
             n_points_active = max(
                 (n_rays * (statics.n_coarse + int(n_fine_active))) // 10, 1)
-        total, parts, _ = loss_fn(batch, draws, epoch, window_weights, near,
-                                  far, centroid, n_fine_active,
-                                  n_points_active)
+        total, parts, out = loss_fn(batch, draws, epoch, window_weights,
+                                    near, far, centroid, n_fine_active,
+                                    n_points_active)
         flat = [p for v in groups.values() for p in v]
         got = torch.autograd.grad(total, flat, allow_unused=True)
         got = iter([torch.zeros_like(p) if g is None else g
                     for p, g in zip(flat, got)])
         optimizer.step(groups, {k: [next(got) for _ in v]
                                 for k, v in groups.items()})
+        if "batch_stats_updates" in out:
+            modules.apply_batch_stats(out["batch_stats_updates"])
         metrics = dict(parts, loss=total)
         return {k: metric_sums[k] + metrics[k].detach() for k in METRIC_KEYS}
 

@@ -13,12 +13,18 @@
   increase_every == 0`` (up to ``max_samples``), window annealing, one step
   per dataset item, a save every ``save_frequency`` epochs and at the end.
 - BatchNorm is frozen when the directional-derivative loss weight is 0, as
-  the shipped conf trains; train-mode BatchNorm and ``num_devices > 1`` raise
-  ``NotImplementedError``.
+  the shipped conf trains; with a nonzero weight the model trains
+  (``VectorFieldNerf.train``: batch statistics, unless
+  ``numerical_jacobian`` keeps them frozen), every step computes the
+  directional derivatives, and static fine growth is off, so each +5 of the
+  fine count changes the sample axis. The running statistics are in the
+  checkpoints. ``num_devices > 1`` raises ``NotImplementedError``
+  (``ROADMAP.md`` A.6).
 - The learning rate decays over ``num_epochs * len(dataset)`` steps.
 
-On the card a step is a sequence of launches (5 fused-MLP, 2 ray-march and
-1 ray-march-backward), so the JAX package's scan and span dispatch, which
+On the card a step is a sequence of launches (the shipped conf: 5
+fused-MLP, 2 ray-march and 1 ray-march-backward; ``train_step.py`` lists
+the other modes'), so the JAX package's scan and span dispatch, which
 amortise a TPU's dispatch latency, are not ported and ``steps_per_dispatch``
 is not read. Batches are assembled, packed and copied to the device (from
 pinned memory, without blocking) one step ahead in a worker thread. The
@@ -76,7 +82,7 @@ class VectorFieldNerfRunner:
         if config.vf_nerf_config.device_config.num_devices > 1:
             raise NotImplementedError(
                 "training on more than one device is not ported yet "
-                "(ROADMAP.md A.3)")
+                "(ROADMAP.md A.6)")
         device = config_device(config) if device is None else device
 
         self.dataset = dataset_dict[config.dataset_config.dataset_name](
@@ -99,10 +105,9 @@ class VectorFieldNerfRunner:
         self.train_dir_derivatives = \
             config.vf_loss_weights.directional_derivatives != 0.0
         if self.train_dir_derivatives:
-            raise NotImplementedError(
-                "a directional-derivative loss weight trains BatchNorm on "
-                "batch statistics, which is not ported yet (ROADMAP.md A.4)")
-        self.model.eval()
+            self.model.train()
+        else:
+            self.model.eval()
 
         self.logger = MetricsLogger(
             run_dir=self.run_dir, project=config.wandb_project,
@@ -181,7 +186,8 @@ class VectorFieldNerfRunner:
         of the padded count with static fine growth."""
         n_fine = self.config.vf_nerf_config.ray_sampler_config.max_samples \
             if self._static_fine() else None
-        statics = self.model.render_statics(n_fine=n_fine)
+        statics = self.model.render_statics(
+            n_fine=n_fine, compute_dir_derivatives=self.train_dir_derivatives)
         sup = SupervisionStatics.from_config(
             self.config.vf_nerf_config, self.init_method,
             n_rays=self.dataset.total_pixels,

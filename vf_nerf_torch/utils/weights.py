@@ -1,10 +1,13 @@
 """Weights carried into the port's modules.
 
 - ``load_jax_variables``: the JAX package's variables as a numpy pytree
-  (``params.{vf,render}.layer_i.{Dense_0,BatchNorm_0}``,
+  (``params.{vf,render}.layer_i.{Dense_0,BatchNorm_0}`` or
+  ``layer_i.WeightNormDense_0.{v,g,bias}``,
   ``batch_stats.{vf,render}.layer_i.BatchNorm_0.{mean,var}`` and
   ``params.density`` with ``beta/scale/mean`` as a dict or a named tuple).
-  Dense kernels transpose from (in, out) to torch's (out, in).
+  Dense kernels and ``v`` transpose from (in, out) to torch's (out, in);
+  ``g`` (out,) becomes ``weight_g`` (out, 1). The running statistics move
+  exactly, and ``export_jax_vf_variables`` gives them back.
 - ``load_jax_train_state``: a JAX ``TrainState`` (params, batch_stats,
   opt_state, step) into a ``VectorFieldNerf`` and its optimizer: the Adam
   moments ``mu`` / ``nu`` leaf by leaf and the count, from the plain
@@ -16,9 +19,11 @@
   ``rendering_net``, ``density``; reference
   ``models/nerf/vector_field_nerf.py:196-214``). The port's modules use the
   reference layer naming natively (``layers.{i}.weight`` for a plain layer,
-  ``layers.{i}.0.*`` / ``layers.{i}.1.*`` for Linear + BatchNorm; reference
-  ``vector_field_network.py:47-60``), so this only strips a ``module.``
-  DataParallel prefix and loads strictly.
+  ``layers.{i}.0.*`` / ``layers.{i}.1.*`` for Linear + BatchNorm,
+  ``layers.{i}.weight_g`` (out, 1) / ``weight_v`` / ``bias`` for weight norm;
+  reference ``vector_field_network.py:47-60``), so this only strips a
+  ``module.`` DataParallel prefix, takes a ``weight_g`` of shape (out,) as
+  (out, 1) and loads strictly.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vf_nerf_torch.models.networks import WeightNormLinear, dense_and_norm
 from vf_nerf_torch.models.renderer import VFNerfModules, param_groups
 
 
@@ -39,21 +45,35 @@ def _modules(model_or_modules) -> VFNerfModules:
 
 
 def _copy(dst: torch.Tensor, src: Any) -> None:
+    """``src`` into ``dst``, reshaped to its shape (``g`` (out,) into
+    ``weight_g`` (out, 1))."""
     with torch.no_grad():
-        dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+        dst.copy_(torch.from_numpy(np.array(src, np.float32)).reshape(
+            dst.shape))
+
+
+def _dense_leaves(dense: nn.Module) -> List[Tuple[str, str, torch.Tensor,
+                                                  bool]]:
+    """(flax scope, leaf, tensor, transposed) of one dense layer."""
+    if isinstance(dense, WeightNormLinear):
+        return [("WeightNormDense_0", "v", dense.weight_v, True),
+                ("WeightNormDense_0", "g", dense.weight_g, False),
+                ("WeightNormDense_0", "bias", dense.bias, False)]
+    return [("Dense_0", "kernel", dense.weight, True),
+            ("Dense_0", "bias", dense.bias, False)]
 
 
 def load_mlp_variables(net: nn.Module, params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]) -> None:
-    """One net's flax variables (``layer_i.{Dense_0,BatchNorm_0}``) into
-    ``net``."""
+    """One net's flax variables (``layer_i.{Dense_0,BatchNorm_0}`` or
+    ``layer_i.WeightNormDense_0``) into ``net``."""
     for i, layer in enumerate(net.layers):
         scope = params[f"layer_{i}"]
-        lin = layer[0] if isinstance(layer, nn.Sequential) else layer
-        _copy(lin.weight, np.asarray(scope["Dense_0"]["kernel"]).T)
-        _copy(lin.bias, scope["Dense_0"]["bias"])
-        if isinstance(layer, nn.Sequential):
-            bn = layer[1]
+        dense, bn = dense_and_norm(layer)
+        for name, leaf, dst, transpose in _dense_leaves(dense):
+            value = np.asarray(scope[name][leaf])
+            _copy(dst, value.T if transpose else value)
+        if bn is not None:
             stats = batch_stats[f"layer_{i}"]["BatchNorm_0"]
             _copy(bn.weight, scope["BatchNorm_0"]["scale"])
             _copy(bn.bias, scope["BatchNorm_0"]["bias"])
@@ -68,11 +88,14 @@ def export_jax_vf_variables(net: nn.Module
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for i, layer in enumerate(net.layers):
-        lin = layer[0] if isinstance(layer, nn.Sequential) else layer
-        scope = {"Dense_0": {"kernel": _numpy(lin.weight).T.copy(),
-                             "bias": _numpy(lin.bias)}}
-        if isinstance(layer, nn.Sequential):
-            bn = layer[1]
+        dense, bn = dense_and_norm(layer)
+        scope: Dict[str, Any] = {}
+        for name, leaf, t, transpose in _dense_leaves(dense):
+            value = _numpy(t).T.copy() if transpose else _numpy(t)
+            if leaf == "g":
+                value = value.reshape(-1)
+            scope.setdefault(name, {})[leaf] = value
+        if bn is not None:
             scope["BatchNorm_0"] = {"scale": _numpy(bn.weight),
                                     "bias": _numpy(bn.bias)}
             stats[f"layer_{i}"] = {"BatchNorm_0": {
@@ -104,19 +127,20 @@ def load_jax_variables(model_or_modules, variables: Mapping[str, Any]) -> None:
 def jax_param_paths(modules: VFNerfModules
                     ) -> List[Tuple[Tuple[str, ...], torch.Tensor, bool]]:
     """Each trainable tensor with its path in the JAX params tree and
-    whether the JAX leaf is its transpose (Dense kernels are (in, out))."""
+    whether the JAX leaf is its transpose (Dense kernels and weight norm's
+    ``v`` are (in, out)); after the transpose a leaf takes the tensor's
+    shape (``g`` (out,) is ``weight_g`` (out, 1))."""
     out = []
     for net_name, net in (("vf", modules.vf), ("render", modules.render)):
         for i, layer in enumerate(net.layers):
             scope = (net_name, f"layer_{i}")
-            lin = layer[0] if isinstance(layer, nn.Sequential) else layer
-            out.append((scope + ("Dense_0", "kernel"), lin.weight, True))
-            out.append((scope + ("Dense_0", "bias"), lin.bias, False))
-            if isinstance(layer, nn.Sequential):
-                out.append((scope + ("BatchNorm_0", "scale"), layer[1].weight,
+            dense, bn = dense_and_norm(layer)
+            out += [(scope + (name, leaf), t, transpose)
+                    for name, leaf, t, transpose in _dense_leaves(dense)]
+            if bn is not None:
+                out.append((scope + ("BatchNorm_0", "scale"), bn.weight,
                             False))
-                out.append((scope + ("BatchNorm_0", "bias"), layer[1].bias,
-                            False))
+                out.append((scope + ("BatchNorm_0", "bias"), bn.bias, False))
     for name in ("beta", "scale", "mean"):
         out.append((("density", name), getattr(modules.density, name),
                     False))
@@ -176,6 +200,10 @@ def load_reference_net(net: nn.Module, state: Mapping[str, Any],
     state = _strip_module_prefix(state)
     state = {k: v for k, v in state.items()
              if not k.endswith("num_batches_tracked")}
+    own = net.state_dict()
+    state = {k: torch.as_tensor(v).reshape(own[k].shape)
+             if k.endswith("weight_g") and k in own else v
+             for k, v in state.items()}
     missing, unexpected = net.load_state_dict(state, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
