@@ -80,6 +80,28 @@ def test_png16_written_by_the_port_reads_back_in_cv2(shape, tmp_path):
         io_utils.load_depth(str(tmp_path / "missing.png"))
 
 
+@pytest.mark.parametrize("shape,kind", [((1, 1), "noise"), ((4, 1), "ramp"),
+                                        ((5, 7), "noise"), ((24, 32), "ramp"),
+                                        ((240, 320), "noise"),
+                                        ((240, 320), "ramp")])
+def test_png16_bytes_are_cv2s(shape, kind, tmp_path):
+    """A 16-bit depth PNG of the port is ``cv2.imwrite``'s file byte for
+    byte (Sub rows, zlib level 1 RLE, libpng's window and 8 KiB IDATs).
+
+    This assumes that Python's ``zlib`` and the zlib inside ``cv2``'s
+    libpng emit the same deflate stream for the same settings: an update of
+    either (zlib, zlib-ng) can break it with the pixels unchanged, which
+    ``test_png16_written_by_the_port_reads_back_in_cv2`` still holds."""
+    rng = np.random.RandomState(2)
+    depth = (rng.randint(0, 65536, shape) if kind == "noise" else
+             np.add.outer(np.arange(shape[0]), np.arange(shape[1])) * 7 +
+             900).astype(np.uint16)
+    cv2.imwrite(str(tmp_path / "cv2.png"), depth)
+    io_utils.write_png(str(tmp_path / "port.png"), depth)
+    assert (tmp_path / "port.png").read_bytes() == \
+        (tmp_path / "cv2.png").read_bytes()
+
+
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
     """The JAX exporters' Replica files of the box and the office."""

@@ -1,5 +1,7 @@
 """The port's rules: it imports neither ``jax`` nor ``vf_nerf_tpu`` (the
-loaders, the JPEG codec and the joint stage included) and loads no library
+loaders, the JPEG codec, the joint stage and the port's tools
+``tools/torch_*.py`` included, which import no JAX-side tool either) and
+loads no library
 from the root ``csrc/``, its entry points (the joint stage's too) refuse to
 run without CUDA unless asked for the CPU, a CUDA tensor never reaches a
 kernel's plain version, a failed host build raises instead of falling back
@@ -41,6 +43,9 @@ import vf_nerf_torch.evaluation.mc.pipeline
 import vf_nerf_torch.ops.projector
 import vf_nerf_torch.train.joint_exp_runner
 import vf_nerf_torch.utils.geometry
+sys.path.insert(0, "tools")
+import torch_office_attribution, torch_office_cohort, torch_office_protocol
+import torch_scannet_protocol
 from vf_nerf_torch.config import parse_config
 from vf_nerf_torch.datasets import dataset_dict
 from vf_nerf_torch.models.nerf import VectorFieldNerf
@@ -84,13 +89,38 @@ def test_import_and_cpu_render_load_no_jax():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
-def test_no_source_imports_jax_or_the_jax_package():
+def port_sources():
+    """The port's Python files: the package, ``chip_smoke.py`` and the
+    port's tools (``tools/torch_*.py``)."""
     files = sorted((ROOT / "vf_nerf_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("torch_*.py"))
+    return files
+
+
+def jax_side_tools():
+    """The tools outside the port that import jax or the JAX package."""
+    return sorted(path.stem for path in (ROOT / "tools").glob("*.py")
+                  if not path.stem.startswith("torch_")
+                  and FORBIDDEN.search(path.read_text()))
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = port_sources()
     assert len(files) > 15
+    tools = jax_side_tools()
+    assert {"office_protocol", "convergence_variance", "office_attribution",
+            "scannet_protocol"} <= set(tools)
+    jax_tools = re.compile(rf"^\s*(import|from)\s+({'|'.join(tools)})\b",
+                           re.MULTILINE)
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+        hits = jax_tools.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+    assert {p.name for p in files} >= {"torch_office_protocol.py",
+                                       "torch_office_attribution.py",
+                                       "torch_scannet_protocol.py"}
 
 
 def test_default_device_is_cuda_and_never_the_cpu():
@@ -298,9 +328,7 @@ def test_no_source_loads_the_root_csrc_libraries():
     """The port builds its own host libraries from ``vf_nerf_torch/csrc``
     into ``build/host``; no module names the root ``csrc/`` or its ``.so``
     files, and the host build's sources and outputs lie where it says."""
-    files = sorted((ROOT / "vf_nerf_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    for path in files:
+    for path in port_sources():
         hits = ROOT_CSRC.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} names {hits}"
     assert host.CSRC == ROOT / "vf_nerf_torch" / "csrc"

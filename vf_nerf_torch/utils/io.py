@@ -6,11 +6,12 @@ plots depth with ``matplotlib``; none is a dependency of this package, so
 PNG files are written and read here with ``zlib`` and ``struct``, and JPEG
 files with ``utils/jpeg.py``:
 
-- ``write_png`` writes 8-bit grey or RGB and 16-bit grey PNGs (every row
-  filter type 0), the pixels ``imageio`` or ``cv2`` would write for the same
-  array; ``read_png`` reads 8- and 16-bit grey, grey + alpha, RGB and RGBA
-  PNGs with any of the five row filters (16-bit samples are big-endian and
-  the filters work on bytes, 2 per sample);
+- ``write_png`` writes 8-bit grey or RGB PNGs (every row filter type 0),
+  the pixels ``imageio`` or ``cv2`` would write for the same array, and
+  16-bit grey PNGs with ``cv2.imwrite``'s bytes; ``read_png`` reads 8- and
+  16-bit grey, grey + alpha, RGB and RGBA PNGs with any of the five row
+  filters (16-bit samples are big-endian and the filters work on bytes, 2
+  per sample);
 - ``load_rgb`` reads PNG and JPEG frames as float32 RGB in [0, 1];
   ``load_depth`` reads a depth PNG's raw values as float32, as
   ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does;
@@ -66,15 +67,50 @@ def write_png(path: str, pixels: np.ndarray) -> None:
                          f"(H, W) uint16, not {pixels.dtype} {pixels.shape}")
     h, w = pixels.shape[:2]
     colour_type = 0 if pixels.ndim == 2 else 2
-    rows = pixels.astype(">u2").view(np.uint8).reshape(h, -1) if grey16 \
-        else pixels.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    if grey16:
+        idat = _png16_idat(pixels)
+    else:
+        raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                              pixels.reshape(h, -1)], axis=1)
+        idat = zlib.compress(raw.tobytes(), 6)
     header = struct.pack(">IIBBBBB", w, h, 16 if grey16 else 8, colour_type,
                          0, 0, 0)
+    # In IDAT chunks of 8 KiB, as libpng writes them.
+    chunks = [_chunk(b"IDAT", idat[i:i + 8192])
+              for i in range(0, len(idat), 8192)]
     with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE + _chunk(b"IHDR", header) +
-                _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) +
+        f.write(_PNG_SIGNATURE + _chunk(b"IHDR", header) + b"".join(chunks) +
                 _chunk(b"IEND", b""))
+
+
+def _png16_idat(pixels: np.ndarray) -> bytes:
+    """A 16-bit grey image's zlib stream as ``cv2.imwrite`` writes it
+    through libpng with OpenCV's defaults: every row filtered with Sub
+    (None for one column), zlib level 1 with the RLE strategy, the window
+    cut to the image's size (libpng's ``png_deflate_claim``), and for images
+    of at most 16 KiB the header's window field cut further
+    (``optimize_cmf``)."""
+    h = pixels.shape[0]
+    rows = pixels.astype(">u2").view(np.uint8).reshape(h, -1)
+    sub = rows.copy()
+    sub[:, 2:] = rows[:, 2:] - rows[:, :-2]          # 2 bytes per sample
+    kind = np.full((h, 1), 1 if rows.shape[1] > 2 else 0, np.uint8)
+    raw = np.concatenate([kind, sub], axis=1).tobytes()
+    size = len(raw)
+    window_bits = 15
+    if size <= 16384:
+        while size + 262 <= 1 << (window_bits - 1):
+            window_bits -= 1
+    deflate = zlib.compressobj(1, zlib.DEFLATED, window_bits, 8, zlib.Z_RLE)
+    data = bytearray(deflate.compress(raw) + deflate.flush())
+    if size <= 16384:
+        cinfo = data[0] >> 4
+        while cinfo > 0 and size <= 1 << (cinfo + 7):
+            cinfo -= 1
+        data[0] = (data[0] & 0x0F) | (cinfo << 4)
+        flags = data[1] & 0xE0
+        data[1] = flags + 0x1F - ((data[0] << 8) + flags) % 0x1F
+    return bytes(data)
 
 
 def _paeth(a: int, b: int, c: int) -> int:
