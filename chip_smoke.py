@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive vf_nerf_torch's eval render, training step, VF init, training
 runner, image evaluation, mesh stack, Replica/ScanNet loaders, joint
-pose-and-field stage, unfolded training modes and the office
-reconstruction protocol on one CUDA card, and check their kernels.
+pose-and-field stage, unfolded training modes, the office reconstruction
+protocol and data parallelism on one CUDA card, and check their kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, nvcc and g++; it builds the kernels and the host libraries from
@@ -182,11 +182,40 @@ Phases, each printing one JSON line:
    view of the trained office through ``render_image`` at 200 samples held
    as in phase 12; the march and its backward at (1024, 200) with their
    times; the phase's seconds and each stage's.
-   Phases 10-17 write under ``build/smoke_run`` and delete it at the end.
+18. parallel: data parallelism on the one card. (a) Two gloo ranks
+   sharing it (NCCL refuses two ranks on one GPU), spawned through
+   ``parallel/multihost.py::spawn``, each on its half of phase 9's step
+   (1024 rays, 512 per rank) and of phase 16's analytic DD step (256 rays,
+   train-mode BatchNorm): exactly 5 / 2 / 1 (DD: 0 / 2 / 1) launches per
+   rank; against one process on the card from the same weights and global
+   draws, the loss within 1e-5 relative, the running statistics within
+   1e-5 relative, both ranks' states equal. Phase 9's step: the summed
+   gradients within 1e-4·max|g| per tensor and the parameters after the
+   step within 1e-5. The DD step (``dd_step_hold``; its f32 chain lies
+   ~2e-2 of max|g| from float64) against a control, one process from a
+   one-ulp copy of the weights: the summed gradients within 2 x the
+   control's distance from one process's; the parameters within 1e-5
+   outside the elements whose float64 gradient is at most 2 x the f32
+   distance, where Adam's first step turns rounding into ±lr (``ROADMAP.md``
+   §C), and the control's step moves none by more outside them; the gap
+   outside only the biases before a BatchNorm is reported for both (it
+   misses 1e-5). ms per step of the pair and of one process, the gloo
+   all-reduce of the flat gradient.
+   (b) ``VectorFieldNerfRunner`` for 3 box epochs spawned as one NCCL rank
+   (``exp_runner``'s launch path) against the runner in this process, and
+   that run against a second one (the control): losses and ``latest``'s
+   weights bit for bit. (c) The 1024-ray render and the res-128 x 8
+   quadrant MC over ``[cuda:0, cuda:0]`` (``enable_mesh_eval``, each slot
+   its own thread and stream) bit-equal to one slot; over ``[cuda:0,
+   cpu]`` (a weight replica on the CPU, refreshed by ``sync_replicas``
+   after a weight change) the card's rays and octants (res 48) bit-equal
+   to one device, the CPU's held as phases 5 and 13 hold the plain path.
+   Phases 10-18 write under ``build/smoke_run`` and delete it at the end.
 
 ``python3 chip_smoke.py --train-modes`` runs the build, phase 10 and phase
 16 alone (``chiprun_out/train_modes.json``); ``--protocol`` the build and
-phase 17 (``chiprun_out/protocol.json``).
+phase 17 (``chiprun_out/protocol.json``); ``--parallel`` the build and
+phase 18 (``chiprun_out/parallel.json``).
 
 ``python3 chip_smoke.py --joint-scan [--epochs 60 120 240 480] [--scene
 smoke|efficacy] [--resume-at N] [--seeds 0 1 ...]`` runs a study instead:
@@ -3063,6 +3092,572 @@ def joint_scan(argv) -> int:
     return 0
 
 
+# ----------------------------------------------------------------- phase 18
+# Data parallel on the one card: two gloo ranks sharing it (NCCL refuses
+# two ranks on one GPU), NCCL at world size 1 through the runner's launch
+# path, and the eval render and quadrant MC over two device slots.
+PARALLEL_RANKS = 2
+PARALLEL_DD_RAYS = 256
+PARALLEL_STEP_RTOL = 1e-5
+PARALLEL_PARAM_TOL = 1e-5
+PARALLEL_GRAD_TOL = 1e-4      # max |Δg| / max |g| per tensor, the step's
+PARALLEL_TIMED_STEPS = 10
+PARALLEL_RUNNER_EPOCHS = 3
+PARALLEL_MESH_RES = 128
+PARALLEL_MIXED_RES = 48
+PARALLEL_DIR = RUN_DIR / "parallel"
+
+
+def parallel_step_case(dd: bool, rays: int, dev) -> dict:
+    """Phase 9's step (the shipped conf, VF gained, 100 + 100 padded fine
+    samples with 30 live, ``rays`` of the entry rays) or, with ``dd``, phase
+    16's analytic DD step (train-mode BatchNorm, 100 + 30 samples); the
+    weights, batch and global draws as CPU tensors."""
+    run = with_mode(runner_config(), dd=dd)
+    model = VectorFieldNerf(run.vf_nerf_config, seed=0, device=dev)
+    gain_vf(model, VF_GAIN)
+    if dd:
+        model.train()
+    statics = model.render_statics(
+        compute_dir_derivatives=dd,
+        n_fine=None if dd else run.vf_nerf_config.ray_sampler_config
+        .max_samples)
+    sup = mode_supervision(run, statics, rays)
+    draws = train.draw_step(statics, sup, rays, model.generator, dev)
+    return dict(config=run.vf_nerf_config, train=dd, dd=dd,
+                n_fine=statics.n_fine, rays=rays,
+                fine=None if dd else N_FINE_ACTIVE,
+                sup={f: getattr(sup, f) for f in
+                     ("init_method", "border_supervision",
+                      "center_supervision", "border_radius", "n_points")},
+                weights=run.vf_loss_weights, loss_config=run.vf_loss_config,
+                state={k: v.cpu() for k, v in
+                       model.modules.state_dict().items()},
+                batch={k: v[:rays].cpu() for k, v in
+                       train_batch(dev).items()},
+                draws={k: None if v is None else v.cpu()
+                       for k, v in draws.items()},
+                taps=torch.from_numpy(model.update_annealing(0)))
+
+
+def parallel_step(case: dict, dev, timed: int = 0) -> dict:
+    """One step of ``case`` on this process's rows (all of them without a
+    process group): its launches, the loss and metrics summed over the
+    ranks, the state after it; then ``timed`` more steps' ms per step."""
+    from vf_nerf_torch.parallel.mesh import all_reduce_flat, world
+    from vf_nerf_torch.parallel.multihost import local_ray_slice
+    rank, size = world()
+    model = VectorFieldNerf(case["config"], seed=0, device=dev)
+    model.modules.load_state_dict(case["state"])
+    if case["train"]:
+        model.train()
+    statics = model.render_statics(n_fine=case["n_fine"],
+                                   compute_dir_derivatives=case["dd"])
+    sup = train.SupervisionStatics(**case["sup"])
+    rows = local_ray_slice(case["rays"], rank, size)
+    batch = {k: v[rows].to(dev) for k, v in case["batch"].items()}
+    draws = {k: None if v is None else v.to(dev)
+             for k, v in case["draws"].items()}
+    taps = case["taps"].to(dev)
+    centroid = torch.zeros(3, device=dev)
+    step = train.make_train_step(model.modules, model.optimizer, statics,
+                                 sup, case["weights"], case["loss_config"])
+
+    def one():
+        return step(train.zero_metric_sums(dev), batch, 0, taps, 0.0, 4.0,
+                    centroid, n_fine_active=case["fine"], draws=draws)
+
+    # The step's gradients (summed over the ranks), as the step takes them.
+    loss_fn = train.make_loss_fn(model.modules, statics, sup,
+                                 case["weights"], case["loss_config"])
+    fine = case["fine"]
+    n_points = None if fine is None else \
+        max((case["rays"] * (statics.n_coarse + fine)) // 10, 1)
+    total, _, _ = loss_fn(batch, train.shard_draws(draws, rows,
+                                                   sup.n_points),
+                          0, taps, 0.0, 4.0, centroid, fine, n_points)
+    names = [n for n, _ in model.modules.named_parameters()]
+    grads = list(torch.autograd.grad(total, list(
+        model.modules.parameters()), allow_unused=True))
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(model.modules.parameters(), grads)]
+    all_reduce_flat(grads)
+    grads = {n: g.cpu() for n, g in zip(names, grads)}
+    del total
+    torch.cuda.synchronize()
+    reset_launches()
+    sums = one()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    metrics = torch.stack([sums[k] for k in train.METRIC_KEYS])
+    all_reduce_flat([metrics])
+    out = dict(launches=launches, grads=grads,
+               metrics=dict(zip(train.METRIC_KEYS, metrics.tolist())),
+               state={k: v.cpu() for k, v in
+                      model.modules.state_dict().items()})
+    if timed:
+        one()
+        torch.cuda.synchronize()
+        if size > 1:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            one()
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) / timed * 1e3
+    return out
+
+
+def parallel_rank(inputs: str) -> None:
+    """One gloo rank of phase 18 (a), on the card that it shares: every
+    case's step, then the gloo all-reduce of the step's flat gradient."""
+    from vf_nerf_torch.parallel.mesh import world
+    from vf_nerf_torch.parallel.multihost import local_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = local_device("cuda")
+    rank, _ = world()
+    cases = torch.load(inputs, weights_only=False)
+    out = {name: parallel_step(case, dev, timed=PARALLEL_TIMED_STEPS
+                               if name == "production" else 0)
+           for name, case in cases.items()}
+    n_params = sum(v.numel() for k, v in cases["production"][
+        "state"].items() if "running" not in k and "num_batches" not in k)
+    flat = torch.zeros(n_params, device=dev)
+    for _ in range(3):
+        torch.distributed.all_reduce(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        torch.distributed.all_reduce(flat)
+    torch.cuda.synchronize()
+    out["allreduce"] = dict(floats=n_params, backend=torch.distributed
+                            .get_backend(),
+                            ms=(time.perf_counter() - t0) / 20 * 1e3)
+    torch.save(out, f"{inputs}.{rank}")
+
+
+def state_gap(a: dict, b: dict) -> dict:
+    """Per tensor of two state dicts, max |a - b| (parameters) or the
+    relative gap (running statistics)."""
+    gaps = {}
+    for name, value in a.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        diff = float((value.double() - b[name].double()).abs().max())
+        if "running" in name:
+            diff /= max(float(b[name].double().abs().max()), 1e-30)
+        gaps[name] = diff
+    return gaps
+
+
+def float64_grads(case: dict) -> dict:
+    """The gradients of ``case``'s loss in one process on the CPU in
+    float64 (the plain path), from the same weights and draws."""
+    model = VectorFieldNerf(case["config"], seed=0, device="cpu")
+    model.modules.load_state_dict(case["state"])
+    model.modules.double()
+    if case["train"]:
+        model.train()
+    statics = model.render_statics(n_fine=case["n_fine"],
+                                   compute_dir_derivatives=case["dd"])
+    loss_fn = train.make_loss_fn(model.modules, statics,
+                                 train.SupervisionStatics(**case["sup"]),
+                                 case["weights"], case["loss_config"])
+    f64 = torch.float64
+    total, _, _ = loss_fn(
+        {k: v.to(f64) for k, v in case["batch"].items()},
+        {k: None if v is None else v.to(f64)
+         for k, v in case["draws"].items()}, 0, case["taps"].to(f64),
+        0.0, 4.0, torch.zeros(3, dtype=f64), case["fine"], None)
+    names = [n for n, _ in model.modules.named_parameters()]
+    grads = torch.autograd.grad(total, list(model.modules.parameters()),
+                                allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g
+            for n, p, g in zip(names, model.modules.parameters(), grads)}
+
+
+def noise_elements(g64: dict, g1: dict, g2: dict) -> dict:
+    """Per tensor, the elements whose float64 gradient lies within
+    ``MODE_SPREAD`` x the larger float32 computation's distance from it
+    (max |g32 - g64| over the tensor): there the f32 gradients' sign is
+    rounding, which Adam's first step turns into ±lr (``ROADMAP.md`` §C;
+    the tensors zero in exact arithmetic, the biases before a train-mode
+    BatchNorm, fall in whole)."""
+    out = {}
+    for n, ref in g64.items():
+        noise = max(float((g1[n].double() - ref).abs().max()),
+                    float((g2[n].double() - ref).abs().max()))
+        out[n] = ref.abs() <= MODE_SPREAD * noise
+    return out
+
+
+def max_or_zero(t: torch.Tensor) -> float:
+    return float(t.max()) if t.numel() else 0.0
+
+
+def masked_state_gap(a: dict, b: dict, masks: dict) -> dict:
+    """Per parameter, max |a - b| over the elements not in ``masks``."""
+    return {name: max_or_zero((a[name].double() - b[name].double())
+                              .abs()[~mask])
+            for name, mask in masks.items()}
+
+
+def ulp_case(case: dict) -> dict:
+    """``case`` with every parameter x (1 + 2^-23): one float32 ulp."""
+    state = {k: v * (1 + 2 ** -23) if v.is_floating_point() and
+             "running" not in k else v for k, v in case["state"].items()}
+    return dict(case, state=state)
+
+
+def dd_step_hold(case: dict, ref: dict, two: dict, dev) -> dict:
+    """(a)'s DD step under train-mode BatchNorm. Its float32 chain lies
+    ~2e-2 of max|g| from float64 (phase 16), and rounding alone moves it as
+    far: a control, the one-process step from a one-ulp copy of the
+    weights, measures that spread. The ranks' summed gradients are held to
+    one process's within ``MODE_SPREAD`` x the control's distance from
+    one process's. Adam's first step turns each gradient's sign into ±lr,
+    so wherever rounding flips a sign the step differs by up to 2·lr
+    (``ROADMAP.md`` §C). The parameters are held within
+    ``PARALLEL_PARAM_TOL`` outside the noise elements
+    (``noise_elements``), and the control's step moves no parameter by
+    more than that outside them either. The gap outside only the biases
+    before a BatchNorm (zero gradient in exact arithmetic) is reported,
+    for the ranks and for the control."""
+    g64 = float64_grads(case)
+    largest = max(float(g.abs().max()) for g in g64.values())
+    null = {n for n, g in g64.items() if float(g.abs().max()) <=
+            1e-12 * largest}
+    live = [n for n in g64 if n not in null]
+    start = ulp_case(case)
+    control = parallel_step(start, dev)
+
+    def gaps(grads):
+        return {n: max_rel(grads[n].double(), ref["grads"][n].double())
+                for n in live}
+
+    direct, spread = gaps(two["grads"]), gaps(control["grads"])
+    limit = max(PARALLEL_GRAD_TOL, MODE_SPREAD * max(spread.values()))
+    out = dict(null_grads=sorted(null),
+               one_process_grad_vs_f64=max(
+                   max_rel(ref["grads"][n].double(), g64[n]) for n in live),
+               ranks_grad_vs_f64=max(
+                   max_rel(two["grads"][n].double(), g64[n]) for n in live),
+               control_grad_rel_gap=max(spread.values()),
+               max_grad_rel_gap=max(direct.values()),
+               worst_grad=max(direct, key=direct.get), grad_limit=limit)
+    check(out["max_grad_rel_gap"] <= limit,
+          f"parallel dd: the ranks' summed gradients differ from one "
+          f"process's by {out['max_grad_rel_gap']} of max|g| "
+          f"({out['worst_grad']}), over {MODE_SPREAD} x the one-ulp "
+          f"control's {out['control_grad_rel_gap']}")
+    noise = noise_elements(g64, ref["grads"], two["grads"])
+
+    def step_gap(first, last):
+        """Per parameter, |(last - first) - one process's step|."""
+        return {n: ((last[n].double() - first[n].double()) -
+                    (ref["state"][n].double() - case["state"][n].double()))
+                .abs() for n in g64}
+
+    ranks_gap = step_gap(case["state"], two["state"])
+    control_gap = step_gap(start["state"], control["state"])
+
+    def outside(gap, masks):
+        return max(max_or_zero(g[~masks[n]]) for n, g in gap.items())
+
+    bn_bias = {n: torch.full_like(g, n in null, dtype=torch.bool)
+               for n, g in g64.items()}
+    out.update(
+        noise=noise,
+        max_param_gap_outside_bn_biases=outside(ranks_gap, bn_bias),
+        control_max_param_gap_outside_bn_biases=outside(control_gap,
+                                                        bn_bias),
+        moved_elements=sum(int(((g > PARALLEL_PARAM_TOL) & ~bn_bias[n])
+                               .sum()) for n, g in ranks_gap.items()),
+        control_moved_elements=sum(int(((g > PARALLEL_PARAM_TOL) &
+                                        ~bn_bias[n]).sum())
+                                   for n, g in control_gap.items()),
+        control_max_param_gap_outside_noise=outside(control_gap, noise))
+    check(out["control_max_param_gap_outside_noise"] < PARALLEL_PARAM_TOL,
+          f"parallel dd: the one-ulp control's step moves a parameter by "
+          f"{out['control_max_param_gap_outside_noise']} outside the noise "
+          f"elements")
+    return out
+
+
+def parallel_ranks_phase(dev) -> dict:
+    """(a): two gloo ranks sharing the card against one process."""
+    from vf_nerf_torch.parallel import multihost
+    cases = {"production": parallel_step_case(False, N_RAYS, dev),
+             "dd_train_bn": parallel_step_case(True, PARALLEL_DD_RAYS, dev)}
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    inputs = PARALLEL_DIR / "steps.pt"
+    torch.save(cases, inputs)
+    one = {name: parallel_step(case, dev, timed=PARALLEL_TIMED_STEPS
+                               if name == "production" else 0)
+           for name, case in cases.items()}
+    progress("parallel: two gloo ranks on the card")
+    t0 = time.perf_counter()
+    multihost.spawn(parallel_rank, PARALLEL_RANKS, "cuda", (str(inputs),),
+                    backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{inputs}.{r}", weights_only=False)
+             for r in range(PARALLEL_RANKS)]
+    rows = {}
+    for name, case in cases.items():
+        want = {"fused_mlp": 0 if case["dd"] else 5, "fused_ray_march": 2,
+                "ray_march_backward": 1}
+        ref, two = one[name], ranks[0][name]
+        row = dict(rays=case["rays"], rays_per_rank=case["rays"] //
+                   PARALLEL_RANKS, one_process_launches=ref["launches"],
+                   rank_launches=[r[name]["launches"] for r in ranks],
+                   loss=two["metrics"]["loss"],
+                   one_process_loss=ref["metrics"]["loss"])
+        if case["train"]:
+            row.update(dd_step_hold(case, ref, two, dev))
+            noise = row.pop("noise")
+        else:
+            grad_gaps = {n: max_rel(two["grads"][n], g)
+                         for n, g in ref["grads"].items()}
+            row.update(max_grad_rel_gap=max(grad_gaps.values()),
+                       worst_grad=max(grad_gaps, key=grad_gaps.get))
+            check(row["max_grad_rel_gap"] <= PARALLEL_GRAD_TOL,
+                  f"parallel {name}: the ranks' summed gradients differ "
+                  f"from one process's by {row['max_grad_rel_gap']} of "
+                  f"max|g| ({row['worst_grad']})")
+            noise = {n: torch.zeros_like(g, dtype=torch.bool)
+                     for n, g in ref["grads"].items()}
+        row.update(noise_elements=int(sum(int(m.sum())
+                                          for m in noise.values())),
+                   elements=sum(m.numel() for m in noise.values()))
+        check(ref["launches"] == want and
+              all(r[name]["launches"] == want for r in ranks),
+              f"parallel {name}: launches one process {ref['launches']}, "
+              f"ranks {row['rank_launches']}; expected {want} each")
+        rel = abs(row["loss"] - row["one_process_loss"]) / \
+            abs(row["one_process_loss"])
+        row["loss_rel_gap"] = rel
+        check(rel <= PARALLEL_STEP_RTOL,
+              f"parallel {name}: the ranks' loss {row['loss']} vs one "
+              f"process {row['one_process_loss']}")
+        replicas = state_gap(ranks[0][name]["state"],
+                             ranks[1][name]["state"])
+        weights = masked_state_gap(two["state"], ref["state"], noise)
+        stats = {k: v for k, v in state_gap(two["state"],
+                                            ref["state"]).items()
+                 if "running" in k}
+        row.update(max_param_gap=max(weights.values()),
+                   worst_param=max(weights, key=weights.get),
+                   max_running_stat_rel_gap=max(stats.values(),
+                                                default=0.0),
+                   replicas_equal=max(replicas.values()) == 0.0)
+        check(row["max_param_gap"] < PARALLEL_PARAM_TOL,
+              f"parallel {name}: parameters after the step differ from "
+              f"one process's by {row['max_param_gap']} "
+              f"({row['worst_param']})")
+        check(row["max_running_stat_rel_gap"] <= PARALLEL_STEP_RTOL,
+              f"parallel {name}: running statistics differ by "
+              f"{row['max_running_stat_rel_gap']} relative")
+        check(row["replicas_equal"], f"parallel {name}: the ranks' states "
+              f"differ after the step")
+        rows[name] = row
+    rows["production"].update(
+        ms_per_step_two_ranks=ranks[0]["production"]["ms_per_step"],
+        ms_per_step_one_process=one["production"]["ms_per_step"])
+    return dict(steps=rows, allreduce=ranks[0]["allreduce"],
+                spawn_seconds=spawn_s,
+                launches=ranks[0]["production"]["launches"])
+
+
+def parallel_runner_config(timestamp: str):
+    cfg = scene_runner_config()
+    cfg.expname, cfg.timestamp = "parallel", timestamp
+    cfg.num_epochs = PARALLEL_RUNNER_EPOCHS
+    cfg.save_frequency = PARALLEL_RUNNER_EPOCHS
+    cfg.exps_folder = str(PARALLEL_DIR / "exps")
+    return cfg
+
+
+def runner_outcome(cfg) -> tuple:
+    """(logged losses, the modules of ``latest.ckpt``) of a finished run."""
+    run_dir = Path(cfg.exps_folder) / cfg.expname / cfg.timestamp
+    with open(run_dir / "metrics.jsonl") as f:
+        losses = [json.loads(line)["loss"] for line in f
+                  if json.loads(line).get("_type") == "metrics"]
+    blob = torch.load(run_dir / "checkpoints" / "vf_nerf" / "latest.ckpt",
+                      map_location="cpu", weights_only=False)
+    return losses, {f"{net}.{k}": v for net in ("vf_net", "rendering_net",
+                                                 "density")
+                    for k, v in blob[net].items()}
+
+
+def parallel_nccl_phase() -> dict:
+    """(b): the runner spawned as one NCCL rank (``exp_runner``'s launch
+    path) against the runner in this process, twice (the control)."""
+    from vf_nerf_torch.parallel import multihost
+    from vf_nerf_torch.train.exp_runner import train as exp_train
+    outcomes = {}
+    for name in ("alone", "alone_again"):
+        cfg = parallel_runner_config(name)
+        VectorFieldNerfRunner(cfg).train()
+        outcomes[name] = runner_outcome(cfg)
+    cfg = parallel_runner_config("nccl")
+    t0 = time.perf_counter()
+    multihost.spawn(exp_train, 1, "cuda", (cfg,), backend="nccl")
+    spawn_s = time.perf_counter() - t0
+    outcomes["nccl"] = runner_outcome(cfg)
+
+    def equal(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][k], b[1][k])
+                                    for k in a[1])
+
+    control = equal(outcomes["alone"], outcomes["alone_again"])
+    nccl = equal(outcomes["nccl"], outcomes["alone"])
+    check(nccl, "parallel: the NCCL world-size-1 runner is not bit-equal "
+          f"to the runner alone (control run equal: {control}); losses "
+          f"{outcomes['nccl'][0]} vs {outcomes['alone'][0]}")
+    return dict(epochs=PARALLEL_RUNNER_EPOCHS, losses=outcomes["nccl"][0],
+                bit_equal=nccl, control_bit_equal=control,
+                spawn_seconds=spawn_s)
+
+
+def parallel_eval_phase(dev) -> dict:
+    """(c): the 1024-ray render and the res-128 x 8 quadrant MC over
+    ``[cuda:0, cuda:0]`` against one device."""
+    uv, pose, intr = entry_inputs()
+    slots = [dev, dev]
+    single, spread = build_model(dev), build_model(dev)
+    spread.enable_mesh_eval(slots)
+    check(spread.eval_devices is not None and
+          len(spread.eval_devices) == 2 and not spread._replicas,
+          f"parallel: enable_mesh_eval kept {spread.eval_devices}")
+    a = single.render(pose, uv, intr, epoch=0)
+    b = spread.render(pose, uv, intr, epoch=0)
+    render_equal = {k: bool(torch.equal(a[k], b[k])) for k in ("rgb",
+                                                               "depth")}
+    check(all(render_equal.values()), f"parallel: the render over two "
+          f"slots is not bit-equal to one device: {render_equal}")
+    octants = list(quadrant_translations(8, 1.0))
+    centroid = np.zeros(3, np.float32)
+    extractor = DeviceMeshExtractor(spread.get_vector_field,
+                                    PARALLEL_MESH_RES, device=dev)
+    times = {}
+    meshes = {}
+    for name, devices in (("one", None), ("two_slots", slots)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meshes[name] = extractor.extract_many(octants, centroid,
+                                              devices=devices)
+        times[name] = time.perf_counter() - t0
+    mesh_equal = all(np.array_equal(v1, v2) and np.array_equal(f1, f2)
+                     for (v1, f1), (v2, f2) in zip(meshes["one"],
+                                                   meshes["two_slots"]))
+    faces = sum(len(f) for _, f in meshes["one"])
+    check(mesh_equal and faces > 0, f"parallel: the quadrant MC over two "
+          f"slots is not bit-equal to one device ({faces} faces)")
+    return dict(render_bit_equal=render_equal, mesh_bit_equal=mesh_equal,
+                faces=faces, mesh_seconds=times,
+                card_and_cpu=parallel_replica_case(dev))
+
+
+def octant_near(ours, ref, voxel) -> bool:
+    """``hold_octant_on_cpu``'s rule for one octant: vertex counts within
+    2 %, median nearest-neighbour distance < 1e-5, max < 2 voxels (two
+    empty octants agree)."""
+    from scipy.spatial import cKDTree
+    if len(ours[0]) == 0 or len(ref[0]) == 0:
+        return len(ours[0]) == len(ref[0])
+    d = cKDTree(ref[0]).query(ours[0], k=1)[0]
+    return abs(len(ours[0]) - len(ref[0])) <= 0.02 * len(ref[0]) and \
+        float(np.median(d)) < 1e-5 and float(d.max()) < 2 * voxel
+
+
+def parallel_replica_case(dev) -> dict:
+    """(c) over ``[cuda:0, cpu]``, the path of several devices: the CPU
+    slot renders and extracts on a weight replica. A weight change made
+    after ``enable_mesh_eval`` reaches the replica through the render's
+    ``sync_replicas``; the card's half of the 1024-ray render and its
+    octants (res ``PARALLEL_MIXED_RES``) are bit-equal to one device, the
+    CPU's half held as ``hold_render`` holds the plain path and its
+    octants as ``hold_octant_on_cpu`` does."""
+    uv, pose, intr = entry_inputs()
+    cpu = torch.device("cpu")
+    slots = [torch.device("cuda", torch.cuda.current_device()), cpu]
+    single, spread = build_model(dev), build_model(dev)
+    spread.enable_mesh_eval(slots)
+    replica = spread._replicas.get(cpu)
+    check(replica is not None and list(spread._replicas) == [cpu],
+          f"parallel: enable_mesh_eval over {slots} kept replicas on "
+          f"{list(spread._replicas)}")
+    name = "vf.layers.0.0.weight"
+    with torch.no_grad():
+        for m in (single, spread):
+            dict(m.modules.named_parameters())[name].mul_(1.001)
+    stale = not torch.equal(replica.state_dict()[name],
+                            spread.modules.state_dict()[name].cpu())
+    a = single.render(pose, uv, intr, epoch=0)
+    b = spread.render(pose, uv, intr, epoch=0)
+    synced = all(torch.equal(v.cpu(), replica.state_dict()[k]) for k, v in
+                 spread.modules.state_dict().items())
+    check(stale and synced, f"parallel: the CPU replica was stale before "
+          f"the render: {stale}, synced after it: {synced}")
+    half = N_RAYS // 2
+    card_equal = all(torch.equal(a[k][:half], b[k][:half])
+                     for k in ("rgb", "depth"))
+    check(card_equal, "parallel: the card's rays of the render over "
+          "[cuda:0, cpu] are not bit-equal to one device")
+    agree = a["argmax_coarse"][half:].cpu() == b["argmax_coarse"][half:].cpu()
+    share = float(agree.float().mean())
+    errs = {k: float((b[k][half:].cpu()[agree] - a[k][half:].cpu()[agree])
+                     .abs().max()) for k in RENDER_TOL}
+    check(share >= MIN_ARGMAX_AGREEMENT and
+          all(errs[k] <= tol for k, tol in RENDER_TOL.items()),
+          f"parallel: the CPU's rays of the render over [cuda:0, cpu]: "
+          f"argmax agreement {share}, errors {errs} (limits {RENDER_TOL})")
+    octants = list(quadrant_translations(8, 1.0))
+    centroid = np.zeros(3, np.float32)
+    extractor = DeviceMeshExtractor(spread.get_vector_field,
+                                    PARALLEL_MIXED_RES, device=dev)
+    t0 = time.perf_counter()
+    one = extractor.extract_many(octants, centroid)
+    mixed = extractor.extract_many(octants, centroid, devices=slots)
+    seconds = time.perf_counter() - t0
+    card_octants = all(np.array_equal(one[k][0], mixed[k][0]) and
+                       np.array_equal(one[k][1], mixed[k][1])
+                       for k in range(0, len(octants), 2))
+    cpu_octants = all(octant_near(mixed[k], one[k], 2 * sub_scale /
+                                  (PARALLEL_MIXED_RES - 1))
+                      for k, (_, sub_scale) in enumerate(octants) if k % 2)
+    faces = sum(len(f) for _, f in one)
+    check(card_octants and cpu_octants and faces > 0,
+          f"parallel: the quadrant MC over [cuda:0, cpu]: card octants "
+          f"bit-equal {card_octants}, CPU octants near {cpu_octants}, "
+          f"{faces} faces")
+    return dict(replica_synced=synced, render_card_bit_equal=card_equal,
+                render_cpu_argmax_agreement=share, render_cpu_errors=errs,
+                mesh_res=PARALLEL_MIXED_RES, mesh_card_bit_equal=card_octants,
+                mesh_cpu_near=cpu_octants, faces=faces,
+                mesh_seconds=seconds)
+
+
+def phase_parallel(dev) -> dict:
+    """Phase 18: data parallel on the one card."""
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        ranks = parallel_ranks_phase(dev)
+        progress("parallel: NCCL at world size 1 through the runner")
+        nccl = parallel_nccl_phase()
+        progress("parallel: render and quadrant MC over two slots")
+        spread = parallel_eval_phase(dev)
+    finally:
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    smi = nvidia_smi()
+    row = dict(phase="parallel", card=smi, two_ranks=ranks,
+               nccl_world_1=nccl, eval_spread=spread)
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3113,6 +3708,7 @@ def main() -> int:
         protocol_launches = phase_protocol(dev)
         joint_launches = phase_joint()
         modes = phase_train_modes(pkl, dev)
+        parallel = phase_parallel(dev)
     finally:
         # The checkpoints, the VF init, the depth maps and the meshes.
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -3121,7 +3717,8 @@ def main() -> int:
              "eval": eval_launches, "mesh": mesh_launches,
              "loaders": loader_launches, "protocol": protocol_launches,
              "joint": joint_launches,
-             "train_modes": modes["launches"]}
+             "train_modes": modes["launches"],
+             "parallel": parallel["two_ranks"]["launches"]}
 
     def launch_counts(name):
         """``launches``: this slice's main path, ``VectorFieldNerfRunner.
@@ -3160,7 +3757,8 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(result, render_ms=render_ms, train_step_ms=step_ms,
-             seconds=seconds, nvidia_smi=smi, failures=failures), indent=1))
+             seconds=seconds, nvidia_smi=smi, parallel=parallel,
+             failures=failures), indent=1))
     if failures:
         print(f"chip_smoke: {len(failures)} checks failed: {failures}",
               file=sys.stderr)
@@ -3203,6 +3801,33 @@ def train_modes_only() -> int:
     return 1 if failures else 0
 
 
+def parallel_only() -> int:
+    """``--parallel``: the kernels' build and phase 18 alone; the result in
+    ``chiprun_out/parallel.json``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi()})
+    load_library()
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        result = phase_parallel(dev)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parallel.json").write_text(json.dumps(
+        dict(result, seconds=time.perf_counter() - T_START,
+             failures=failures), indent=1))
+    print(f"chip_smoke: {len(failures)} checks failed: {failures}",
+          file=sys.stderr)
+    return 1 if failures else 0
+
+
 def protocol_only() -> int:
     """``--protocol``: the kernels' build and phase 17 alone; the result in
     ``chiprun_out/protocol.json``."""
@@ -3235,5 +3860,6 @@ def protocol_only() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--joint-scan"]:
         sys.exit(joint_scan(sys.argv[2:]))
-    only = {"--train-modes": train_modes_only, "--protocol": protocol_only}
+    only = {"--train-modes": train_modes_only, "--protocol": protocol_only,
+            "--parallel": parallel_only}
     sys.exit(only.get(sys.argv[1] if sys.argv[1:] else "", main)())

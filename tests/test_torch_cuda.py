@@ -839,3 +839,143 @@ def test_fused_mlp_at_the_grid_chunk(cuda):
     torch.cuda.synchronize()
     assert fused_mlp.launches == before + 1
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+# ---- data parallel: the eval render and the octant spread over two slots
+
+def test_eval_spread_over_two_slots_of_the_card_is_bit_equal(cuda):
+    """``enable_mesh_eval([cuda, cuda])``: a 64-ray render (perturb on) and
+    a res-24 × 8 quadrant extraction split over two slots of the card, each
+    on its own stream and thread, equal one slot bit for bit."""
+    from vf_nerf_torch.evaluation.mc.device_pipeline import \
+        DeviceMeshExtractor
+    from vf_nerf_torch.evaluation.mc.pipeline import quadrant_translations
+    from vf_nerf_torch.models.nerf import VectorFieldNerf
+
+    def model(slots=None):
+        m = VectorFieldNerf(_tiny_config(), seed=3, device=cuda)
+        with torch.no_grad():
+            for layer in m.modules.vf.layers:
+                (layer[0] if isinstance(layer, torch.nn.Sequential)
+                 else layer).weight.mul_(3.0)
+        m.near, m.far = 0.0, 4.0
+        if slots:
+            m.enable_mesh_eval(slots)
+        return m
+
+    n = 64
+    rng = np.random.RandomState(0)
+    uv = rng.uniform(0, 40, (n, 2)).astype(np.float32)
+    pose = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    intr = pose.copy()
+    intr[:, 0, 0] = intr[:, 1, 1] = 30.0
+    intr[:, 0, 2], intr[:, 1, 2] = 20.0, 15.0
+    single, spread = model(), model([cuda, cuda])
+    a = single.render(pose, uv, intr, epoch=0)
+    b = spread.render(pose, uv, intr, epoch=0)
+    for k in ("rgb", "depth", "weights", "z_vals", "normals"):
+        assert torch.equal(a[k], b[k]), k
+    extractor = DeviceMeshExtractor(spread.get_vector_field, 24,
+                                    device=cuda)
+    octants = list(quadrant_translations(8, 2.0))
+    one = extractor.extract_many(octants, np.zeros(3, np.float32))
+    two = extractor.extract_many(octants, np.zeros(3, np.float32),
+                                 devices=spread.eval_devices)
+    assert sum(len(f) for _, f in one) > 0
+    for (v1, f1), (v2, f2) in zip(one, two, strict=True):
+        assert np.array_equal(v1, v2) and np.array_equal(f1, f2)
+
+
+def test_eval_spread_over_the_card_and_the_cpu_uses_a_synced_replica(cuda):
+    """``enable_mesh_eval([cuda, cpu])``, the path of two distinct devices:
+    the CPU slot holds a replica of the modules, which a weight change made
+    afterwards reaches through the render's ``sync_replicas``. The card's
+    rays and octants equal one device's bit for bit; the CPU's rays are
+    held as ``test_render_rays_on_card_matches_cpu`` holds the plain path
+    and its octants by the near-identity rule."""
+    from vf_nerf_torch.evaluation.mc.device_pipeline import \
+        DeviceMeshExtractor
+    from vf_nerf_torch.evaluation.mc.pipeline import quadrant_translations
+    from vf_nerf_torch.models.nerf import VectorFieldNerf
+
+    def model(slots=None):
+        m = VectorFieldNerf(_tiny_config(), seed=3, device=cuda)
+        with torch.no_grad():
+            for layer in m.modules.vf.layers:
+                (layer[0] if isinstance(layer, torch.nn.Sequential)
+                 else layer).weight.mul_(3.0)
+        m.near, m.far = 0.0, 4.0
+        if slots:
+            m.enable_mesh_eval(slots)
+        return m
+
+    cpu = torch.device("cpu")
+    slots = [torch.device("cuda", torch.cuda.current_device()), cpu]
+    single, spread = model(), model(slots)
+    assert list(spread._replicas) == [cpu]
+    replica = spread._replicas[cpu]
+    name = "vf.layers.0.0.weight"
+    with torch.no_grad():
+        for m in (single, spread):
+            dict(m.modules.named_parameters())[name].mul_(1.001)
+    assert not torch.equal(replica.state_dict()[name],
+                           spread.modules.state_dict()[name].cpu())
+    n = 64
+    rng = np.random.RandomState(0)
+    uv = rng.uniform(0, 40, (n, 2)).astype(np.float32)
+    pose = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    intr = pose.copy()
+    intr[:, 0, 0] = intr[:, 1, 1] = 30.0
+    intr[:, 0, 2], intr[:, 1, 2] = 20.0, 15.0
+    a = single.render(pose, uv, intr, epoch=0)
+    b = spread.render(pose, uv, intr, epoch=0)
+    for k, v in spread.modules.state_dict().items():
+        assert torch.equal(v.cpu(), replica.state_dict()[k]), k
+    half = n // 2
+    np.testing.assert_array_equal(b["argmax_coarse"][half:].cpu().numpy(),
+                                  a["argmax_coarse"][half:].cpu().numpy())
+    for k in ("rgb", "depth", "weights", "z_vals", "normals"):
+        assert torch.equal(a[k][:half], b[k][:half]), k
+        np.testing.assert_allclose(b[k][half:].cpu().numpy(),
+                                   a[k][half:].cpu().numpy(), err_msg=k,
+                                   rtol=1e-4, atol=1e-4)
+    res = 24
+    extractor = DeviceMeshExtractor(spread.get_vector_field, res,
+                                    device=cuda)
+    octants = list(quadrant_translations(8, 2.0))
+    one = extractor.extract_many(octants, np.zeros(3, np.float32))
+    two = extractor.extract_many(octants, np.zeros(3, np.float32),
+                                 devices=spread.eval_devices)
+    for k, (_, sub_scale) in enumerate(octants):
+        if k % 2 == 0:
+            assert np.array_equal(one[k][0], two[k][0]) and \
+                np.array_equal(one[k][1], two[k][1]), k
+        elif len(one[k][0]) or len(two[k][0]):
+            _near_identical(two[k], one[k], 2 * sub_scale / (res - 1))
+    assert sum(len(f) for _, f in two[1::2]) > 0
+
+
+def test_launch_counts_hold_under_threads(cuda):
+    """The device slots launch from threads at once: 16 threads x 40 calls
+    of the fused MLP with a 1 µs switch interval count 640 launches."""
+    import sys
+    import threading
+    weights = [(w.to(cuda), b.to(cuda))
+               for w, b in _mlp_weights([7, 5, 3], None, 0)]
+    x = torch.randn(65, 7, device=cuda)
+    start = fused_mlp.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            fused_mlp(weights, x, skip_at=None, final_act="tanh")
+            for _ in range(40)]) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches - start == 640

@@ -422,6 +422,19 @@ def test_warm_up_freezes_the_field_and_the_anchor_holds(tmp_path):
     assert np.array_equal(runner.pose_params[0], poses[0])
 
 
+def test_default_conf_builds_in_process_on_a_multi_card_host(
+        tmp_path, monkeypatch):
+    """``num_devices = 0`` on a host with two cards: a joint runner built
+    in this process (no process group) runs on its one device."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cfg = parse_config(expname="p", timestamp="multi", gpu="cpu",
+                       **_write_confs(tmp_path))
+    cfg.vf_config.vf_nerf_config.device_config.platform = ""   # CUDA conf
+    assert cfg.vf_config.vf_nerf_config.device_config.num_devices == 0
+    runner = JointOptimizationRunner(cfg, device="cpu")
+    assert (runner.rank, runner.world_size) == (0, 1)
+
+
 def test_pose_lr_decay_follows_optax(tmp_path):
     steps = 6
     schedule = optax.exponential_decay(1e-2, transition_steps=steps,

@@ -359,6 +359,23 @@ def test_protocol_main_writes_the_headline_keys(narrow_conf, small_tsdf,
 
 
 
+def test_cohort_carries_an_earlier_records_seeds(tmp_path):
+    """Seeds with no files in the log directory keep their rows from an
+    earlier record, whose headline stands in for the headline seed's files:
+    from an empty directory the H100 record reassembles to itself, and a
+    seed in neither is listed as not run."""
+    with open(ROOT / "results" / "office_torch_h100.json") as f:
+        earlier = json.load(f)
+    seeds = sorted(int(s) for s in earlier["cohort"])
+    record = tcohort.build_record(str(tmp_path), 42, [*seeds, 11],
+                                  "tree", "parent", earlier=earlier)
+    for key in ("cohort", "cohort_median", "cohort_range", "headline",
+                "headline_attribution", "devices", "any_seed_flagged"):
+        assert record[key] == earlier[key], key
+    assert record["seeds_not_run"] == [11]
+    assert record["source"]["carried_from_earlier_record"] == seeds
+
+
 def test_scannet_main_runs_on_the_cpu(narrow_conf, small_tsdf, tmp_path):
     out = tsp.main(["--gpu", "cpu", "--views", str(VIEWS), "--size",
                     *map(str, SIZE), "--epochs", "2", "--crop", "2",

@@ -46,6 +46,7 @@ from test_torch_train_step import jax_step_draws
 from vf_nerf_tpu.config.parser import parse_config as jparse
 from vf_nerf_tpu.train.runner import VectorFieldNerfRunner as JRunner
 from vf_nerf_torch.config import parse_config
+from vf_nerf_torch.config.parser import requested_devices
 from vf_nerf_torch.models.nerf import VectorFieldNerf
 from vf_nerf_torch.parallel.train_step import METRIC_KEYS
 from vf_nerf_torch.train.runner import VectorFieldNerfRunner
@@ -345,17 +346,35 @@ def test_missing_checkpoint_raises(trained):
 
 
 def test_unported_runner_options_raise(trained):
-    """More than one device raises (a directional-derivative weight trains
+    """More than one device without a process group raises: one process
+    trains on one device, and ``exp_runner`` spawns the ranks
+    (``test_torch_parallel.py``; a directional-derivative weight trains
     since it was ported: ``test_torch_train_modes_runner.py``)."""
     cfg = parse_config(scene="box", config_path=trained["conf"],
                        expname="p", timestamp="x", gpu="cpu", offline=True)
     cfg.vf_nerf_config.device_config.num_devices = 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         VectorFieldNerfRunner(cfg)
     cfg.vf_nerf_config.device_config.num_devices = 0
     cfg.dataset_config.dataset_name = "replica"
     with pytest.raises(FileNotFoundError):      # no Replica files at data/
         VectorFieldNerfRunner(cfg)
+
+
+def test_default_conf_builds_in_process_on_a_multi_card_host(trained,
+                                                            monkeypatch):
+    """``num_devices = 0`` (the shipped conf) on a host with two cards:
+    the launch path reads it as every card, and a runner built in this
+    process (no process group) trains on its one device."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cfg = parse_config(scene="box", config_path=trained["conf"],
+                       expname="p", timestamp="multi", gpu="cpu",
+                       offline=True)
+    cfg.vf_nerf_config.device_config.platform = ""      # a CUDA conf
+    assert cfg.vf_nerf_config.device_config.num_devices == 0
+    assert requested_devices(cfg) == 2
+    runner = VectorFieldNerfRunner(cfg, device="cpu")
+    assert (runner.rank, runner.world_size) == (0, 1)
 
 
 _HELP_WITHOUT_JAX = """

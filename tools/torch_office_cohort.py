@@ -16,15 +16,24 @@ of PSNR and MC F-score, no TPU time) from ``results/office_r5.json``.
 [<stage>, ...], "note": ...}}``; a seed it does not name gets the tree
 ``null`` (not recorded) and no shared stage.
 
+``--record`` names an earlier record (this tool's output) whose seeds have
+no files in ``--logdir``: their rows are carried over as they stand, its
+headline seed's ``office.json`` and ``attribution.json`` (the record's
+``headline`` and ``headline_attribution``) stand in for missing files, and
+the cohort's median and range are taken over every row. So seeds run in
+different calls, whose per-seed files were not kept, join one record.
+
 Usage: python tools/torch_office_cohort.py --logdir chiprun_out/office \\
            --headline-seed 42 --seeds 42 1 2 3 7 --tree <git tree> \\
            --parent <git commit> [--runs runs.json] \\
+           [--record results/office_torch_h100.json] \\
            --out results/office_torch_h100.json
 """
 
 import argparse
 import json
 import os
+import statistics
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,8 +62,16 @@ def jax_quality(path):
 
 
 def build_record(logdir, headline_seed, seeds, tree, parent, runs=None,
-                 jax_record=os.path.join(REPO, "results", "office_r5.json")):
+                 jax_record=os.path.join(REPO, "results", "office_r5.json"),
+                 earlier=None):
     loaded = load_cohort(logdir)
+    carried = {int(s): row for s, row in (earlier or {}).get(
+        "cohort", {}).items() if int(s) not in loaded}
+    ran = set(loaded)
+    if headline_seed in carried:
+        loaded[headline_seed] = {"office": earlier["headline"],
+                                 "attribution":
+                                     earlier["headline_attribution"]}
     out = assemble(loaded, headline_seed)
     out["note"] = (
         "vf_nerf_torch on the H100: tools/torch_office_protocol.py at the "
@@ -64,9 +81,9 @@ def build_record(logdir, headline_seed, seeds, tree, parent, runs=None,
         "Each seed's 'run' names the tree that ran and the stages timed "
         "while another process used the same card. Seeds are labels: "
         "torch's generators draw other streams than JAX's threefry.")
-    out["cohort_range"] = {k: spread(out["cohort"].values(), k)
-                           for k in QUALITY}
     for seed, row in out["cohort"].items():
+        if int(seed) not in ran:
+            continue
         office = loaded[int(seed)]["office"]
         row["device"] = office["device"]
         row["eval_wall_s"] = office["eval_wall_s"]
@@ -79,11 +96,18 @@ def build_record(logdir, headline_seed, seeds, tree, parent, runs=None,
                    set(row["eval_wall_s"]) - {"train"})
         if unknown:
             raise ValueError(f"seed {seed}: no stage {sorted(unknown)}")
+    out["cohort"].update({str(s): row for s, row in carried.items()})
+    rows = list(out["cohort"].values())
+    for k in out["cohort_median"]:
+        vals = [r[k] for r in rows if r.get(k) is not None]
+        out["cohort_median"][k] = statistics.median(vals) if vals else None
+    out["cohort_range"] = {k: spread(rows, k) for k in QUALITY}
     out["devices"] = sorted({row["device"] for row in out["cohort"].values()})
     out["any_seed_flagged"] = any(row["convergence_flagged"]
                                   for row in out["cohort"].values())
-    out["seeds_not_run"] = sorted(set(seeds) - set(loaded))
-    out["source"] = {"assembled_on_tree": tree, "parent_commit": parent}
+    out["seeds_not_run"] = sorted(set(seeds) - ran - set(carried))
+    out["source"] = {"assembled_on_tree": tree, "parent_commit": parent,
+                     "carried_from_earlier_record": sorted(carried)}
     out["jax_cohort_quality"] = jax_quality(jax_record)
     return out
 
@@ -101,6 +125,9 @@ def main(argv=None):
     parser.add_argument("--runs", default=None,
                         help="JSON file: per seed, the tree that ran and "
                              "the stages timed beside another process")
+    parser.add_argument("--record", default=None,
+                        help="an earlier record whose seeds have no files "
+                             "in --logdir; their rows are carried over")
     parser.add_argument("--out", default=os.path.join(
         REPO, "results", "office_torch_h100.json"))
     args = parser.parse_args(argv)
@@ -108,8 +135,12 @@ def main(argv=None):
     if args.runs:
         with open(args.runs) as f:
             runs = json.load(f)
+    earlier = None
+    if args.record:
+        with open(args.record) as f:
+            earlier = json.load(f)
     out = build_record(args.logdir, args.headline_seed, args.seeds,
-                       args.tree, args.parent, runs)
+                       args.tree, args.parent, runs, earlier=earlier)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({k: out[k] for k in ("cohort_median", "cohort_range",

@@ -80,6 +80,18 @@ def config_device(config: VFRunnerConfig) -> str:
     return "cpu" if platform == "cpu" else "cuda"
 
 
+def requested_devices(config: VFRunnerConfig) -> int:
+    """The ranks a config asks for: ``num_devices``, or with 0 every local
+    device (the CUDA cards, or the one CPU with ``--gpu cpu``)."""
+    n = config.vf_nerf_config.device_config.num_devices
+    if n > 0:
+        return n
+    if config_device(config) == "cpu":
+        return 1
+    import torch
+    return max(torch.cuda.device_count(), 1)
+
+
 def parse_config(scene: str,
                  config_path: str = "confs/vf_nerf.conf",
                  gpu: str = "auto",

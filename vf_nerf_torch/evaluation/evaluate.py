@@ -11,7 +11,9 @@ on top of the restored count (``:37-41``), and writes under
 variants), ``tsdf-mesh`` and ``3d-metrics``. The plot methods, and so
 ``all``, raise ``NotImplementedError``: they need ``matplotlib``, which the
 card's machine lacks (``ROADMAP.md`` A.7). On CUDA unless the config asks
-for the CPU (``--gpu cpu``) or ``device`` says so. Usage::
+for the CPU (``--gpu cpu``) or ``device`` says so. With more than one
+local card the eval render and the quadrant MC's octants spread over all
+of them (``VectorFieldNerf.enable_mesh_eval``). Usage::
 
     python -m vf_nerf_torch.evaluation.evaluate --scene office0 \\
         --expname replica --timestamp T --checkpoint latest --method metrics
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import os
 from typing import Tuple
+
+import torch
 
 from vf_nerf_torch.config.parser import (config_device, eval_argparser,
                                          parse_config)
@@ -67,6 +71,9 @@ def eval_model(config: VFRunnerConfig, device=None
             rs.max_samples)
         print(f"Fine sampler N_samples: {model.fine_n_samples}")
     model.eval()
+    if model.device.type == "cuda" and torch.cuda.device_count() > 1:
+        # Every local card renders and extracts (JAX evaluate.py:54-57).
+        model.enable_mesh_eval()
     return model, epoch
 
 

@@ -10,6 +10,12 @@ extractor's device; only the surface cells' indices and their signed corner
 values are read back. Triangle emission and dedup stay on the host
 (``contrastive.py``, ``csrc/meshops.cpp``), and ``extract_many`` runs
 octant k's host tail in a worker thread while octant k+1's grid is computed.
+Given several devices, ``extract_many`` sends the octants round-robin over
+them (a worker thread per device, on CUDA its own stream; the field runs on
+the device of its points), at most two per device in flight, the oldest
+drained first (``vf_nerf_tpu/evaluation/mc/device_pipeline.py:285-343``);
+octants are independent cubes, so the meshes are bit-equal to one
+device's.
 
 Where the port has to match the JAX package exactly:
 
@@ -35,8 +41,9 @@ Where the port has to match the JAX package exactly:
 
 from __future__ import annotations
 
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +53,7 @@ from vf_nerf_torch.evaluation.mc.field_ops import FACE_AREA, SHAPE_VOLUME
 from vf_nerf_torch.evaluation.mc.smoothing import smooth_vf
 from vf_nerf_torch.evaluation.mc.tables import (COMB_I, COMB_J,
                                                 CORNER_OFFSETS, PAIR_TO_COMB)
+from vf_nerf_torch.parallel.mesh import on_stream_of
 
 FieldFn = Callable[[torch.Tensor], torch.Tensor]
 Mesh = Tuple[np.ndarray, np.ndarray]
@@ -238,13 +246,14 @@ class DeviceMeshExtractor:
         self.cell_bucket = cell_bucket
         self.smooth_before = smooth_before
         self.smooth_after = smooth_after
-        self._tables = _Tables(self.device)
+        self._tables = {self.device: _Tables(self.device)}
 
-    def field_grids(self, scale: float, offset: np.ndarray):
-        """(vt, norms, mask) of one cube: the unit field and norms that the
-        classification reads, and the divergence mask."""
+    def field_grids(self, scale: float, offset: np.ndarray, device=None):
+        """(vt, norms, mask) of one cube on ``device`` (default: the
+        extractor's): the unit field and norms that the classification
+        reads, and the divergence mask."""
         offset_t = torch.as_tensor(np.asarray(offset, np.float32),
-                                   device=self.device)
+                                   device=device or self.device)
         grid = build_raw_field_grid(self.vf_apply, self.resolution, scale,
                                     offset_t, self.chunk)
         if self.smooth_before:
@@ -256,23 +265,27 @@ class DeviceMeshExtractor:
             vt, norms = normalize_grid(smooth_vf(grid, k=9, sigma=2.0))
         return vt, norms, mask
 
-    def device_stages(self, scale: float, offset: np.ndarray
+    def device_stages(self, scale: float, offset: np.ndarray, device=None
                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """Field grid → mask → corner classification for one cube; the
-        grids are freed on return.
+        """Field grid → mask → corner classification for one cube on
+        ``device`` (default: the extractor's); the grids are freed on
+        return.
 
         :return: (crossing cells (M, 3) int32, signed corner values (M, 8)
             float32), on the host.
         """
+        device = torch.device(device) if device is not None else self.device
+        if device not in self._tables:
+            self._tables[device] = _Tables(device)
         with torch.no_grad():
-            vt, norms, mask = self.field_grids(scale, offset)
+            vt, norms, mask = self.field_grids(scale, offset, device)
             cells = torch.nonzero(mask)
             del mask
             signed, crossing = [], []
             for start in range(0, len(cells), self.cell_bucket):
                 s, c = cell_signed_values(
                     vt, norms, cells[start:start + self.cell_bucket],
-                    self._tables)
+                    self._tables[device])
                 signed.append(s)
                 crossing.append(c)
             del vt, norms
@@ -298,6 +311,49 @@ class DeviceMeshExtractor:
             verts = verts * scale + np.asarray(offset, np.float32)
         return verts, faces
 
+    def _extract_spread(self, octants, centroid, world_coords,
+                        devices: List[torch.device]) -> List[Mesh]:
+        """Octant k's device stages on ``devices[k % D]`` in that device
+        slot's worker thread; at most ``2 D`` octants staged, the oldest
+        drained first into the host tail."""
+        for d in devices:
+            if d not in self._tables:
+                self._tables[d] = _Tables(d)
+        homes = {d: torch.cuda.current_stream(d) if d.type == "cuda"
+                 else None for d in devices}
+
+        def stages(scale, offset, device):
+            return on_stream_of(device, homes[device],
+                                lambda: self.device_stages(scale, offset,
+                                                           device))
+
+        slots = [ThreadPoolExecutor(max_workers=1) for _ in devices]
+        staged: deque = deque()
+        results = []
+        try:
+            with ThreadPoolExecutor(max_workers=1) as host:
+                def drain():
+                    future, scale, offset = staged.popleft()
+                    cells, signed = future.result()
+                    results.append(host.submit(self.host_tail, cells,
+                                               signed, scale, offset,
+                                               world_coords))
+
+                for k, (translation, sub_scale) in enumerate(octants):
+                    if len(staged) >= 2 * len(devices):
+                        drain()
+                    slot = k % len(devices)
+                    offset = np.asarray(translation) + np.asarray(centroid)
+                    staged.append((slots[slot].submit(
+                        stages, sub_scale, offset, devices[slot]),
+                        sub_scale, offset))
+                while staged:
+                    drain()
+                return [f.result() for f in results]
+        finally:
+            for pool in slots:
+                pool.shutdown(wait=True)
+
     def extract(self, scale: float, centroid: np.ndarray,
                 translation: np.ndarray, world_coords: bool = True) -> Mesh:
         offset = np.asarray(translation) + np.asarray(centroid)
@@ -305,11 +361,17 @@ class DeviceMeshExtractor:
         return self.host_tail(cells, signed, scale, offset, world_coords)
 
     def extract_many(self, octants: Iterable[Tuple[np.ndarray, float]],
-                     centroid: np.ndarray, world_coords: bool = True
-                     ) -> List[Mesh]:
+                     centroid: np.ndarray, world_coords: bool = True,
+                     devices: Optional[Sequence] = None) -> List[Mesh]:
         """Every (translation, sub-scale) cube in turn, octant k's host
-        tail in one worker thread while octant k+1's device stages run.
-        Returns the meshes in octant order, equal to ``extract`` of each."""
+        tail in one worker thread while octant k+1's device stages run;
+        with more than one of ``devices``, the octants round-robin over
+        them (module docstring). Returns the meshes in octant order, equal
+        to ``extract`` of each."""
+        if devices is not None and len(devices) > 1:
+            return self._extract_spread(list(octants), centroid,
+                                        world_coords,
+                                        [torch.device(d) for d in devices])
         with ThreadPoolExecutor(max_workers=1) as pool:
             futures = []
             for translation, sub_scale in octants:

@@ -362,12 +362,15 @@ def quadrant_marching_cubes(model: VectorFieldNerf, resolution: int,
     """Per-octant MC + concatenation, the reference's memory workaround for
     high resolutions (``methods.py:74-137``: 8, 35 or 64 sub-cubes of
     ``resolution``³ samples each). One extractor serves every octant, and
-    octant k's host tail overlaps octant k+1's field grid."""
+    octant k's host tail overlaps octant k+1's field grid; with the
+    model's eval devices (``enable_mesh_eval``) the octants spread over
+    them."""
     centroid = np.asarray(centroid, np.float32)
     octants = list(quadrant_translations(num_quadrants, scale))
     extractor = _extractor(model, resolution, smooth_all, smooth_after)
-    meshes = [(v, f) for v, f in extractor.extract_many(octants, centroid)
-              if len(v)]
+    model.sync_replicas()
+    meshes = [(v, f) for v, f in extractor.extract_many(
+        octants, centroid, devices=model.eval_devices) if len(v)]
     verts, faces = concatenate_meshes(meshes) if meshes else \
         (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
     io_utils.mkdir_ifnotexists(mesh_path)

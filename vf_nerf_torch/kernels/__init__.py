@@ -12,12 +12,14 @@ seconds. Nothing is compiled or loaded when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import List
 
@@ -131,15 +133,34 @@ def _build(out_dir: Path) -> str:
     return log
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (each wrapper counts the launches of
+    its kernel); a lock keeps the count when threads launch at once (the
+    eval render's and the octant spread's device slots)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Build the kernels if this source hash has no library yet, then load
-    it. Raises if nvcc is missing or a build fails."""
+    it. Raises if nvcc is missing or a build fails. Processes that start
+    at once (the ranks of a data-parallel run) take a file lock, so one
+    builds and the others load its library."""
     out_dir = BUILD_ROOT / _source_hash()
     path = out_dir / LIB_NAME
-    if path.exists():
+    log = None
+    if not path.exists():
+        _nvcc()                      # raises before anything is written
+        BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_ROOT / f"{out_dir.name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not path.exists():
+                log = _build(out_dir)
+    if log is None:
         log = (out_dir / "build.log").read_text() \
             if (out_dir / "build.log").exists() else ""
-    else:
-        log = _build(out_dir)
     return KernelLibrary(path, log)

@@ -14,6 +14,13 @@ reference ``models/losses/vf_loss.py:13-87``). Terms, with the weights of
 With static fine growth the per-sample means run over the live samples
 (``sample_mask``), which equals the unpadded means. ``similarity_loss``
 (``vf_nerf_tpu/models/loss.py:165``) is the joint stage's.
+
+Data parallel (``parallel/mesh.py``): every mean, masked count and gate is
+over the global batch, as GSPMD reduces them in the JAX package. Each rank
+returns its numerator over the global count (counts summed over the ranks,
+detached; the clamp to 1 applies to the global count), so the sum of the
+ranks' losses is the one-process loss. At one rank the arithmetic is the
+one-process arithmetic.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from vf_nerf_torch.config.schema import VFLossConfig, VFLossWeights
 from vf_nerf_torch.ops.rays import normalize
+from vf_nerf_torch.parallel.mesh import global_max, global_mean, global_sum
 
 Term = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
@@ -32,7 +40,7 @@ def masked_sq_err(pred: torch.Tensor, gt: torch.Tensor,
                   mask: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of squared errors over the masked rows, number of masked
-    elements)."""
+    elements), both of this rank's rows."""
     sq = (pred - gt) ** 2
     if mask is None:
         return torch.sum(sq), sq.new_tensor(float(sq.numel()))
@@ -56,7 +64,8 @@ def vf_loss(predictions: Dict[str, torch.Tensor],
         triples pooled into one MSE (trainer ``:180-216``).
     :param epoch: the epoch, for the gates.
     """
-    rgb_loss = torch.mean(torch.abs(predictions["rgb"] - ground_truth["rgb"]))
+    rgb_loss = global_mean(torch.abs(predictions["rgb"] -
+                                     ground_truth["rgb"]))
     zero = rgb_loss.new_zeros(())
 
     gt_depth = ground_truth.get("depth")
@@ -66,9 +75,9 @@ def vf_loss(predictions: Dict[str, torch.Tensor],
         if config.mask_invalid_depth:
             valid = (gt_depth > 0).to(per_elem.dtype)
             depth_loss = torch.sum(per_elem * valid) / torch.clamp(
-                torch.sum(valid), min=1.0)
+                global_sum(torch.sum(valid)), min=1.0)
         else:
-            depth_loss = torch.mean(per_elem)
+            depth_loss = global_mean(per_elem)
     else:
         depth_loss = zero
 
@@ -77,9 +86,9 @@ def vf_loss(predictions: Dict[str, torch.Tensor],
 
     def sample_mean(values: torch.Tensor) -> torch.Tensor:
         if sample_mask is None:
-            return torch.mean(values)
+            return global_mean(values)
         return torch.sum(values * sample_mask) / torch.clamp(
-            torch.sum(sample_mask), min=1.0)
+            global_sum(torch.sum(sample_mask)), min=1.0)
 
     unit_norm_loss = sample_mean((norms - 1.0) ** 2)
 
@@ -88,6 +97,7 @@ def vf_loss(predictions: Dict[str, torch.Tensor],
         s, c = masked_sq_err(pred_n, gt_n, mask)
         sup_sum = sup_sum + s
         sup_count = sup_count + c
+    sup_count = global_sum(sup_count)
     supervision_loss = torch.where(
         sup_count > 0, sup_sum / torch.clamp(sup_count, min=1.0), zero)
 
@@ -123,7 +133,8 @@ def similarity_loss(x1: torch.Tensor, x2: torch.Tensor, v1: torch.Tensor,
     point should reach its partner by walking its unit field vector for the
     pair's distance. Pairs whose fields oppose (cosine < 0.5, without a
     gradient) and whose miss exceeds half the largest miss (also without a
-    gradient) count, weighted by 1 − cosine; 0 when no pair does."""
+    gradient) count, weighted by 1 − cosine; 0 when no pair does. Data
+    parallel, the largest miss and the count are the global batch's."""
     distance = torch.linalg.vector_norm(x2 - x1, dim=1, keepdim=True)
     x1_est = x2 + normalize(v2, dim=1) * distance
     x2_est = x1 + normalize(v1, dim=1) * distance
@@ -131,8 +142,8 @@ def similarity_loss(x1: torch.Tensor, x2: torch.Tensor, v1: torch.Tensor,
         torch.linalg.vector_norm(x2 - x2_est, dim=1)
     cos = torch.sum(normalize(v1, dim=1) * normalize(v2, dim=1),
                     dim=1).detach()
-    gate = (cos < 0.5) & (diff > 0.5 * diff.detach().max())
-    count = torch.sum(gate)
+    gate = (cos < 0.5) & (diff > 0.5 * global_max(diff.detach().max()))
+    count = global_sum(torch.sum(gate))
     weighted = torch.sum(torch.where(gate, diff * (1.0 - cos),
                                      torch.zeros_like(diff)))
     return torch.where(count > 0, weighted / torch.clamp(count, min=1),

@@ -28,24 +28,40 @@ sampling on, the reference's optimizer sees the VF net's tensors twice
 (``vector_field_nerf.py:127-137``), and ``duplicate_vf`` reproduces that:
 the VF gradients count twice in the clip's norm and take the clip
 coefficient squared, and Adam runs two sub-steps on them per step.
+
+``enable_mesh_eval(devices)`` spreads the eval render over several local
+devices (JAX ``enable_mesh_eval``, ``vf_nerf_tpu/models/nerf.py:280-313``):
+each chunk of rays whose count divides by the device count is split into
+contiguous parts, one per device, each rendered by a replica of the modules
+on its device (on its own thread, and on CUDA its own stream); the draws
+are the whole chunk's, drawn from the facade's generator as one device
+draws them and sliced, and the parts are gathered in order. Every render op
+is per ray, so the result is bit-equal to one device; a chunk that does not
+divide renders on the facade's device. ``get_vector_field`` runs on the
+device of the points it is given, on that device's replica (the octant
+spread of ``DeviceMeshExtractor.extract_many``).
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Any, Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vf_nerf_torch.config.schema import SchedulerConfig, VFNerfConfig
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
-                                           param_groups, render_rays,
+                                           draw_uniforms, param_groups,
+                                           render_rays,
                                            weights_and_composite)
 from vf_nerf_torch.ops import samplers
 from vf_nerf_torch.ops.annealing import annealed_window_weights
 from vf_nerf_torch.ops.density import get_beta, get_mean, get_scale
 from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
+from vf_nerf_torch.parallel.mesh import (indexed, make_mesh,
+                                         on_stream_of, replicate)
 from vf_nerf_torch.utils import checkpoint as ckpt_io
 from vf_nerf_torch.utils.weights import (load_mlp_variables,
                                          load_reference_state)
@@ -225,6 +241,10 @@ class VectorFieldNerf:
         self.window_weights = np.asarray(config.cos_sim_weights, np.float32)
         self.near = config.ray_sampler_config.near
         self.far = config.ray_sampler_config.far
+        # The eval render's devices (``enable_mesh_eval``) and the modules'
+        # replicas on the devices other than the facade's.
+        self.eval_devices: Optional[List[torch.device]] = None
+        self._replicas: Dict[torch.device, VFNerfModules] = {}
 
     @property
     def step(self) -> int:
@@ -290,12 +310,11 @@ class VectorFieldNerf:
         ``pose`` (R, 4, 4) or (R, 7) and ``intrinsics`` (R, 4, 4); returns
         the dict of ``render_rays``."""
         self.update_annealing(epoch)
-        return render_rays(
-            self.modules, self.to_device(pixels), self.to_device(pose),
-            self.to_device(intrinsics), self.near, self.far,
-            self.to_device(self.window_weights),
-            self.render_statics(white_background=white),
-            generator=self.generator)
+        self.sync_replicas()
+        return self._render_chunk(
+            self.to_device(pixels), self.to_device(pose),
+            self.to_device(intrinsics), self.to_device(self.window_weights),
+            self.render_statics(white_background=white))
 
     def render_image(self, pixels, pose, intrinsics, epoch: int,
                      white: bool = False, split_size: int = 1024
@@ -311,25 +330,98 @@ class VectorFieldNerf:
         pose44 = self.to_device(pose).reshape(4, 4)
         intr44 = self.to_device(intrinsics).reshape(4, 4)
         weights = self.to_device(self.window_weights)
+        self.sync_replicas()
         rgbs, depths = [], []
         for chunk in torch.split(uv, split_size):
             n = chunk.shape[0]
-            out = render_rays(self.modules, chunk, pose44.expand(n, 4, 4),
-                              intr44.expand(n, 4, 4), self.near, self.far,
-                              weights, statics, generator=self.generator)
+            out = self._render_chunk(chunk, pose44.expand(n, 4, 4),
+                                     intr44.expand(n, 4, 4), weights, statics)
             rgbs.append(out["rgb"])
             depths.append(out["depth"])
         return torch.cat(rgbs), torch.cat(depths)
+
+    # ---------------------------------------------------------- mesh eval
+    def enable_mesh_eval(self, devices: Optional[Sequence] = None) -> None:
+        """Spread the eval render (and the octant spread of the mesh
+        methods) over ``devices`` (default: every local CUDA device), each
+        with a replica of the modules; one device turns it off."""
+        devs = make_mesh(0, devices)
+        self.eval_devices = devs if len(devs) > 1 else None
+        self._replicas = {d: r for d, r in zip(devs, replicate(self.modules,
+                                                               devs))
+                          if r is not self.modules}
+
+    @torch.no_grad()
+    def sync_replicas(self) -> None:
+        """Copy the modules' current state into every replica."""
+        state = self.modules.state_dict()
+        for replica in self._replicas.values():
+            replica.load_state_dict(state)
+
+    def _modules_on(self, device: torch.device) -> VFNerfModules:
+        if device == indexed(self.device):
+            return self.modules
+        if device not in self._replicas:
+            raise ValueError(f"no replica of the modules on {device}; "
+                             "enable_mesh_eval with it first")
+        return self._replicas[device]
+
+    def _render_chunk(self, uv, pose, intrinsics, weights,
+                      statics: RenderStatics) -> Dict[str, torch.Tensor]:
+        """``render_rays`` of one chunk on the facade's device, or split
+        over the eval devices when its ray count divides by theirs."""
+        devs = self.eval_devices
+        n = uv.shape[0]
+        if devs is None or n % len(devs):
+            return render_rays(self.modules, uv, pose, intrinsics, self.near,
+                               self.far, weights, statics,
+                               generator=self.generator)
+        draws = draw_uniforms(statics, n, self.generator, self.device)
+        per = n // len(devs)
+        home = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+
+        def part(i):
+            dev, rows = devs[i], slice(i * per, (i + 1) * per)
+
+            def run():
+                def put(x):
+                    return None if x is None else x[rows].to(dev)
+                return render_rays(
+                    self._modules_on(dev), put(uv), put(pose),
+                    put(intrinsics), self.near, self.far, weights.to(dev),
+                    statics, t_coarse=put(draws["t_coarse"]),
+                    t_fine=put(draws["t_fine"]),
+                    u_extra=put(draws["u_extra"]))
+            return on_stream_of(dev, home, run)
+
+        with ThreadPoolExecutor(len(devs)) as pool:
+            parts = list(pool.map(part, range(len(devs))))
+        out = {k: torch.cat([p[k].to(self.device) for p in parts])
+               for k, v in parts[0].items() if isinstance(v, torch.Tensor)}
+        # The parts' memory is reused on their streams only after the
+        # gather has read it.
+        for dev in set(devs) | {self.device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return out
 
     @torch.no_grad()
     def get_vector_field(self, points, chunk: int = 1 << 17
                          ) -> torch.Tensor:
         """The raw field (N, 3) at ``points`` (N, 3) through the BN-folded VF
         net, one fused-MLP launch per ``chunk`` points (reference
-        ``get_vector_field``, ``vector_field_nerf.py:380-403``)."""
-        pts = self.to_device(points).reshape(-1, 3)
-        vf_w = self.modules.vf.folded_weights()
-        return torch.cat([self.modules.vf_apply_folded(vf_w, part)[:, :3]
+        ``get_vector_field``, ``vector_field_nerf.py:380-403``). A tensor on
+        another eval device runs there, on its replica."""
+        if isinstance(points, torch.Tensor) and points.device in \
+                self._replicas:
+            modules = self._replicas[points.device]
+            pts = points.to(torch.float32).reshape(-1, 3)
+        else:
+            modules = self.modules
+            pts = self.to_device(points).reshape(-1, 3)
+        vf_w = modules.vf.folded_weights()
+        return torch.cat([modules.vf_apply_folded(vf_w, part)[:, :3]
                           for part in torch.split(pts, chunk)])
 
     @torch.no_grad()

@@ -27,7 +27,12 @@ biased batch variance, and ``updates`` holds the new running statistics,
 ``0.9·running + 0.1·batch`` of the mean and of the biased variance, under
 the state-dict names. The forward never writes a buffer: the caller keeps
 the updates of the pass it chooses (``apply_updates``), as the JAX package
-keeps only the fine pass's. Dropout in train mode raises
+keeps only the fine pass's. Data parallel (``parallel/mesh.py``), the
+batch is the global one: the row count and the row sums are summed over
+the ranks, then the squared deviations from the global mean (two passes,
+as ``torch.var_mean``), so every rank normalizes and updates with the
+statistics of the whole batch, as flax does under GSPMD. Dropout in train
+mode raises
 ``NotImplementedError``: the JAX renderer passes no ``dropout`` rng, so the
 JAX package cannot train with it either (in eval mode it is the identity
 in both).
@@ -51,6 +56,7 @@ from torch import nn
 from vf_nerf_torch.config.schema import RenderingNetConfig, VFNetConfig
 from vf_nerf_torch.ops.embedding import embedding_dim, positional_encoding
 from vf_nerf_torch.ops.fused_mlp import Weights, fold_dense_bn
+from vf_nerf_torch.parallel.mesh import all_reduce_sum, global_sum, sharded
 
 # flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, the JAX package's:
 # running = momentum·running + (1 − momentum)·batch.
@@ -98,6 +104,17 @@ def _linear(fan_in: int, fan_out: int, xavier: bool, bias_init: float,
     return lin
 
 
+def batch_var_mean(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(biased variance, mean) over the rows of the global batch; one rank:
+    ``torch.var_mean``."""
+    if not sharded():
+        return torch.var_mean(x, dim=0, correction=0)
+    n = global_sum(torch.tensor(float(x.shape[0]), device=x.device))
+    mean = all_reduce_sum(torch.sum(x, dim=0)) / n
+    var = all_reduce_sum(torch.sum((x - mean) ** 2, dim=0)) / n
+    return var, mean
+
+
 def dense_and_norm(layer: nn.Module
                    ) -> Tuple[nn.Module, Optional[nn.BatchNorm1d]]:
     """(the Linear or ``WeightNormLinear``, its BatchNorm or None)."""
@@ -137,7 +154,7 @@ class _MLP(nn.Module):
         if not train:
             return F.batch_norm(x, bn.running_mean, bn.running_var,
                                 bn.weight, bn.bias, False, 0.0, bn.eps)
-        var, mean = torch.var_mean(x, dim=0, correction=0)
+        var, mean = batch_var_mean(x)
         if stats is not None:
             stats[i] = (mean.detach(), var.detach())
         return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias

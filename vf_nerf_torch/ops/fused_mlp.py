@@ -26,7 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from vf_nerf_torch.kernels import load_library
+from vf_nerf_torch.kernels import count_launch, load_library
 
 Weights = List[Tuple[torch.Tensor, torch.Tensor]]
 _ACTS = {"none": 0, "tanh": 1, "sigmoid": 2}
@@ -302,7 +302,7 @@ def _launch(weights: Weights, x: torch.Tensor, skip_at: Optional[int],
             n_layers, -1 if skip_at is None else skip_at, _ACTS[final_act],
             None if acts is None else acts.data_ptr(), blocks128, stream)
     lib.check(code, "fused_mlp launch")
-    fused_mlp.launches += 1
+    count_launch(fused_mlp)
     return out, acts
 
 

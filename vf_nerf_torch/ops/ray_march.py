@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from vf_nerf_torch.kernels import load_library
+from vf_nerf_torch.kernels import count_launch, load_library
 from vf_nerf_torch.ops import compositing
 from vf_nerf_torch.ops.density import (DensityParams, get_beta, get_mean,
                                        get_scale, laplace_cdf,
@@ -180,7 +180,7 @@ def _launch_forward(normals, ray_dirs, z_vals, rgb_samples, scalars, taps,
             n_rays, n_samples, st.live(n_samples), int(st.normalize),
             int(st.white_background), stream)
     lib.check(code, "fused_ray_march launch")
-    fused_ray_march.launches += 1
+    count_launch(fused_ray_march)
     return rgb, depth, weights
 
 
@@ -225,7 +225,7 @@ def ray_march_backward(normals, ray_dirs, z_vals, rgb_samples, scalars,
             partials.data_ptr(), n_rays, n_samples, st.live(n_samples),
             int(st.normalize), int(st.white_background), stream)
     lib.check(code, "ray_march_backward launch")
-    ray_march_backward.launches += 1
+    count_launch(ray_march_backward)
     return d_normals, d_rgb, partials
 
 

@@ -27,9 +27,19 @@ draws them from a ``torch.Generator`` in a fixed order: the render's
 points ``border`` and the ball points ``center``, (n_points, 3) each, both
 always (``ops/points.py`` says what a row holds).
 
+Data parallel (``parallel/mesh.py``): each rank passes its slice of the
+global ray batch. The draws are the global step's: ``draw_step`` draws the
+global tensors from the shared-seed generator in the order above, and each
+rank takes its rays' rows of the render's draws and its contiguous share
+of the shell and ball rows (``shard_draws``); static fine growth's shell
+mask compares the global row index with the global live count. After the
+backward every gradient is summed over the ranks in one flat all-reduce,
+then the clip and Adam run alike on every rank. The metric sums stay this
+rank's shares (the runner sums them over the ranks once per epoch).
+
 The JAX package's scan and span steps dispatch K of these steps at once on
-the TPU; on the card a step is a sequence of launches, and the runner that
-would loop them is a later slice.
+the TPU; on the card a step is a sequence of launches, and the runner loops
+them.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from vf_nerf_torch.models.nerf import Optimizer, param_groups
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
                                            draw_uniforms, render_rays)
 from vf_nerf_torch.ops import points as points_ops
+from vf_nerf_torch.parallel.mesh import all_reduce_flat, shard_rows, world
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -78,11 +89,28 @@ class SupervisionStatics:
 def draw_step(statics: RenderStatics, sup: SupervisionStatics, n_rays: int,
               generator: Optional[torch.Generator],
               device) -> Dict[str, Optional[torch.Tensor]]:
-    """A step's draws, in the order of the module docstring."""
+    """A step's draws for ``n_rays`` (global) rays, in the order of the
+    module docstring."""
     draws = draw_uniforms(statics, n_rays, generator, device)
     draws["border"] = points_ops.shell_draw(sup.n_points, generator, device)
     draws["center"] = points_ops.shell_draw(sup.n_points, generator, device)
     return draws
+
+
+SHELL_KEYS = ("border", "center")
+
+
+def shard_draws(draws: Dict[str, Optional[torch.Tensor]], rays: slice,
+                n_points: int) -> Dict[str, Optional[torch.Tensor]]:
+    """This rank's rows of a global step's draws: ``rays`` of the render's,
+    and its ``shard_rows`` of the ``n_points`` shell and ball rows. The
+    identity at one rank."""
+    rank, size = world()
+    if size == 1:
+        return draws
+    shell = shard_rows(n_points, rank, size)
+    return {k: None if v is None else v[shell if k in SHELL_KEYS else rays]
+            for k, v in draws.items()}
 
 
 def _supervision_terms(field: Callable[[torch.Tensor], torch.Tensor],
@@ -94,17 +122,23 @@ def _supervision_terms(field: Callable[[torch.Tensor], torch.Tensor],
     the VF net's outputs. With static fine growth the ray samples' masks
     are ANDed with ``sample_mask`` and the shell draw is masked down to its
     first ``n_points_active`` rows, the reference's count at the live
-    sample count; without it the draw is the whole count, unmasked."""
+    sample count; without it the draw is the whole count, unmasked. Data
+    parallel, ``draws`` holds this rank's shell rows and the mask reads
+    their global indices."""
     radius = sup.border_radius
     sample_mask = out.get("sample_mask")
 
     def ray_mask(mask):
         return mask * sample_mask if sample_mask is not None else mask
 
-    def shell_mask(n_rows):
+    rank, size = world()
+    first_row = shard_rows(sup.n_points, rank, size).start
+
+    def shell_mask(pts):
+        """The live rows of this rank's shell draw, by global row index."""
         if n_points_active is None:
             return None
-        rows = torch.arange(n_rows, device=centroid.device)
+        rows = first_row + torch.arange(pts.shape[0], device=centroid.device)
         return (rows < n_points_active).to(torch.float32)
 
     def vf_normals(pts):
@@ -119,13 +153,13 @@ def _supervision_terms(field: Callable[[torch.Tensor], torch.Tensor],
         # ...plus shell samples in [far/2 - r, far/2] (trainer :186-193).
         pts, gt_s = points_ops.sample_border_points(
             draws["border"], far / 2.0 - radius, far / 2.0, centroid)
-        terms.append((vf_normals(pts), gt_s, shell_mask(sup.n_points)))
+        terms.append((vf_normals(pts), gt_s, shell_mask(pts)))
         return terms
     if sup.border_supervision:
         # Shell samples in [far - 5r, far] point inward (trainer :197-204).
         pts, gt_s = points_ops.sample_border_points(
             draws["border"], far - 5.0 * radius, far, centroid)
-        terms.append((vf_normals(pts), gt_s, shell_mask(sup.n_points)))
+        terms.append((vf_normals(pts), gt_s, shell_mask(pts)))
     if sup.center_supervision:
         # Ray samples near the centroid point outward (trainer :205-209)...
         mask, gt = points_ops.center_mask_and_gt(out["points"], centroid,
@@ -134,7 +168,7 @@ def _supervision_terms(field: Callable[[torch.Tensor], torch.Tensor],
         # ...plus ball samples around the centroid (trainer :210-216).
         pts, gt_s = points_ops.sample_center_points(draws["center"],
                                                     centroid, radius)
-        terms.append((vf_normals(pts), gt_s, shell_mask(sup.n_points)))
+        terms.append((vf_normals(pts), gt_s, shell_mask(pts)))
     return terms
 
 
@@ -235,11 +269,12 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
     read back to the host).
 
     :param batch: dict of uv (R, 2), rgb (R, 3), depth (R, 1), pose
-        (R, 4, 4), intrinsics (R, 4, 4), or a packed (R, 38) tensor.
+        (R, 4, 4), intrinsics (R, 4, 4), or a packed (R, 38) tensor; data
+        parallel, this rank's ``local_ray_slice`` of the global batch.
     :param n_fine_active: static fine growth's live fine count (an int), or
         None when ``statics.n_fine`` is the fine count itself.
-    :param draws: the step's draws (``draw_step``); None draws them from
-        ``generator``.
+    :param draws: the global step's draws (``draw_step``); None draws them
+        from ``generator``.
     """
     loss_fn = make_loss_fn(modules, statics, sup, loss_weights, loss_config)
     groups = param_groups(modules)
@@ -248,13 +283,17 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
              n_fine_active=None, draws=None, generator=None):
         if not isinstance(batch, dict):
             batch = unpack_batch(batch)
-        n_rays = batch["uv"].shape[0]
+        rank, size = world()
+        n_local = batch["uv"].shape[0]
+        n_rays = n_local * size
         if draws is None:
             if generator is None:
                 raise ValueError("the train step needs its draws or a "
                                  "torch.Generator to draw them from")
             draws = draw_step(statics, sup, n_rays, generator,
                               batch["uv"].device)
+        draws = shard_draws(draws, slice(rank * n_local,
+                                         (rank + 1) * n_local), sup.n_points)
         n_points_active = None
         if n_fine_active is not None:
             n_points_active = max(
@@ -264,8 +303,10 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
                                     n_points_active)
         flat = [p for v in groups.values() for p in v]
         got = torch.autograd.grad(total, flat, allow_unused=True)
-        got = iter([torch.zeros_like(p) if g is None else g
-                    for p, g in zip(flat, got)])
+        got = [torch.zeros_like(p) if g is None else g
+               for p, g in zip(flat, got)]
+        all_reduce_flat(got)
+        got = iter(got)
         optimizer.step(groups, {k: [next(got) for _ in v]
                                 for k, v in groups.items()})
         if "batch_stats_updates" in out:

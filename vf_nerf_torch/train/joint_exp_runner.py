@@ -8,12 +8,22 @@ Usage::
         --expname replica --vf_config_path confs/vf_nerf.conf \\
         --joint_config_path confs/joint_optimization.conf \\
         [--timestamp T --checkpoint latest] [--gpu cpu]
+
+Data parallel as ``exp_runner``: the VF conf's ``num_devices`` ranks are
+spawned, or ``torchrun``'s joined.
 """
 
 from __future__ import annotations
 
 from vf_nerf_torch.config.joint_parser import argparser, parse_config
+from vf_nerf_torch.config.joint_schema import JointOptimizationConfig
+from vf_nerf_torch.config.parser import config_device, requested_devices
+from vf_nerf_torch.parallel.multihost import launch
 from vf_nerf_torch.train.joint_runner import JointOptimizationRunner
+
+
+def train(config: JointOptimizationConfig) -> None:
+    JointOptimizationRunner(config).train()
 
 
 def main() -> None:
@@ -26,7 +36,8 @@ def main() -> None:
                           checkpoint=args.checkpoint,
                           data_root_dir=args.data_root_dir,
                           offline=args.offline)
-    JointOptimizationRunner(config).train()
+    launch(train, (config,), config_device(config.vf_config),
+           requested_devices(config.vf_config))
 
 
 if __name__ == "__main__":

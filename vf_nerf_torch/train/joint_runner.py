@@ -48,8 +48,18 @@ runner's order, so both packages draw the same ones.
 Checkpoints are the facade's (``VectorFieldNerf.save``) with the poses
 added under ``"poses"``; a resume (``checkpoint``) loads the model and, when
 the file has them, the refined poses (the JAX stage reloads the model
-only). The JAX package's scan dispatch and multi-device sharding are not
-ported: a step is a sequence of launches on one card.
+only). The JAX package's scan dispatch is not ported: a step is a sequence
+of launches on one card.
+
+Data parallel (``ROADMAP.md`` A.6), as the JAX stage shards over its
+devices: one process per device (``parallel/multihost.py``), every rank
+with the same batches, draws and supervision points, each trimmed to a
+multiple of the rank count (the JAX runner's ``_trim``: on 2 ranks the
+4,095 supervision points of 3 views become 4,094) and sliced to the rank's
+rows; the means, the similarity gate's largest miss and its count are the
+global batch's (``models/loss.py``); the field's and the poses' gradients
+are summed over the ranks in one all-reduce before Adam; the dominant
+bases are rank 0's. Rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -68,8 +78,13 @@ from vf_nerf_torch.datasets import dataset_dict
 from vf_nerf_torch.models.loss import similarity_loss
 from vf_nerf_torch.models.nerf import (ExponentialDecay, Optimizer,
                                        VectorFieldNerf, param_groups)
-from vf_nerf_torch.models.renderer import render_rays
+from vf_nerf_torch.models.renderer import draw_uniforms, render_rays
 from vf_nerf_torch.ops.rays import matrix_to_pose7, pose7_to_matrix
+from vf_nerf_torch.parallel.mesh import (all_reduce_flat, global_mean,
+                                         trim_to_multiple)
+from vf_nerf_torch.parallel.multihost import (broadcast_from_rank0,
+                                              check_world, local_device,
+                                              local_ray_slice)
 from vf_nerf_torch.utils import checkpoint as ckpt_io
 from vf_nerf_torch.utils.logging import MetricsLogger
 from vf_nerf_torch.utils.prefetch import Prefetcher
@@ -113,11 +128,11 @@ class JointOptimizationRunner:
         self.config = config
         vf_cfg = config.vf_config
         np.random.seed(42)
-        if vf_cfg.vf_nerf_config.device_config.num_devices > 1:
-            raise NotImplementedError(
-                "the joint stage on more than one device is not ported "
-                "(ROADMAP.md A.6)")
-        device = config_device(vf_cfg) if device is None else device
+        self.rank, self.world_size = check_world(
+            vf_cfg.vf_nerf_config.device_config.num_devices)
+        if device is None:
+            device = config_device(vf_cfg) if self.world_size == 1 \
+                else local_device(config_device(vf_cfg))
         self.dataset = dataset_dict[vf_cfg.dataset_config.dataset_name](
             vf_cfg.dataset_config)
         tc = config.train_config
@@ -153,7 +168,8 @@ class JointOptimizationRunner:
         self.logger = MetricsLogger(self.run_dir, vf_cfg.wandb_project,
                                     vf_cfg.expname + "_joint",
                                     vf_cfg.timestamp or "joint",
-                                    offline=vf_cfg.offline)
+                                    offline=vf_cfg.offline) \
+            if self.rank == 0 else None
         self._bases: Optional[np.ndarray] = None
         self._rng = np.random.RandomState(42)
         self.joint_steps = 0
@@ -217,6 +233,7 @@ class JointOptimizationRunner:
         got = torch.autograd.grad(total, flat, allow_unused=True)
         got = [torch.zeros_like(p) if g is None else g
                for p, g in zip(flat, got)]
+        all_reduce_flat(got)
         out, i = {}, 0
         for key, ps in groups.items():
             out[key] = got[i:i + len(ps)]
@@ -229,12 +246,21 @@ class JointOptimizationRunner:
                    near: float, far: float, window: torch.Tensor,
                    freeze_model: bool = False
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(total, parts) of the joint loss on one ray batch; the graph
-        reaches the poses and, unless ``freeze_model``, the field."""
+        """(total, parts) of the joint loss on one ray batch (this rank's
+        slice; ``draws``: the global batch's, or None to draw them); the
+        graph reaches the poses and, unless ``freeze_model``, the field."""
         modules = self.model.modules
         weights = self.weights
         folded = modules.folded_weights(detach=freeze_model)
         pose7 = self.poses[batch["view_idx"].long()]
+        n_local = batch["uv"].shape[0]
+        if self.world_size > 1:
+            if not draws:
+                draws = draw_uniforms(statics, n_local * self.world_size,
+                                      self.model.generator, self.device)
+            rows = slice(self.rank * n_local, (self.rank + 1) * n_local)
+            draws = {k: None if v is None else v[rows]
+                     for k, v in draws.items()}
         draws = draws or {}
         out = render_rays(modules, batch["uv"], pose7, batch["intrinsics"],
                           near, far, window, statics,
@@ -244,11 +270,11 @@ class JointOptimizationRunner:
                           u_extra=draws.get("u_extra"),
                           grad=True, folded=folded)
         clamp = self.config.vf_config.vf_loss_config.depth_loss_clamp
-        rgb_loss = torch.mean(torch.abs(out["rgb"] - batch["rgb"]))
+        rgb_loss = global_mean(torch.abs(out["rgb"] - batch["rgb"]))
         depth_err = torch.abs(out["depth"] - batch["depth"])
-        depth_loss = torch.mean(torch.clamp(depth_err, max=clamp))
+        depth_loss = global_mean(torch.clamp(depth_err, max=clamp))
         normals = out["normals"].reshape(-1, 3)
-        unit_norm = torch.mean(
+        unit_norm = global_mean(
             (torch.linalg.vector_norm(normals, dim=1) - 1.0) ** 2)
         pts, nrm = out["points"], out["normals"]
         half = pts.shape[1] // 2
@@ -286,8 +312,8 @@ class JointOptimizationRunner:
         vf_w = modules.vf.folded_weights(detach=False)
         v_surf = modules.vf_apply_folded(vf_w, surface)[:, :3]
         v_off = modules.vf_apply_folded(vf_w, off)[:, :3]
-        surf = torch.mean((v_surf - surface_gt) ** 2)
-        off_loss = torch.mean((v_off - off_gt) ** 2)
+        surf = global_mean((v_surf - surface_gt) ** 2)
+        off_loss = global_mean((v_off - off_gt) ** 2)
         w = self.weights
         total = w.supervision * (w.surface * surf +
                                  w.non_surface * off_loss)
@@ -353,7 +379,8 @@ class JointOptimizationRunner:
                           ) -> Tuple[torch.Tensor, ...]:
         """(surface points, snapped targets, off-surface points, their
         targets) on the device, the targets snapped against the field as it
-        stands."""
+        stands; trimmed to a multiple of the rank count and sliced to this
+        rank's rows."""
         surface = self._surface_points(n, rng)
         vf = self.model.get_vector_field(surface)
         vf_hat = vf / torch.clamp(torch.linalg.vector_norm(
@@ -365,17 +392,23 @@ class JointOptimizationRunner:
         direction = surface - off
         off_gt = direction / np.maximum(
             np.linalg.norm(direction, axis=1, keepdims=True), 1e-8)
-        return (self.model.to_device(surface), snapped,
-                self.model.to_device(off),
-                self.model.to_device(off_gt.astype(np.float32)))
+        n = trim_to_multiple(len(surface), self.world_size)
+        rows = local_ray_slice(n, self.rank, self.world_size)
+        return (self.model.to_device(surface[rows]), snapped[rows],
+                self.model.to_device(off[rows]),
+                self.model.to_device(off_gt[rows].astype(np.float32)))
 
     # -------------------------------------------------------------- train
     def _feed(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A host ray batch on the device (pinned, asynchronous on CUDA)."""
+        """This rank's slice of a host ray batch, trimmed to a multiple of
+        the rank count, on the device (pinned, asynchronous on CUDA)."""
+        n = trim_to_multiple(len(batch["uv"]), self.world_size)
+        rows = local_ray_slice(n, self.rank, self.world_size)
         out = {}
         for k in RAY_KEYS:
             t = torch.from_numpy(np.ascontiguousarray(
-                batch[k], np.int64 if k == "view_idx" else np.float32))
+                batch[k][:n][rows],
+                np.int64 if k == "view_idx" else np.float32))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t.to(self.device)
@@ -391,9 +424,10 @@ class JointOptimizationRunner:
         last: Dict[str, float] = {}
         for epoch in range(tc.joint_epochs):
             last = self.train_epoch(epoch, draws)
-            if epoch % self.config.save_frequency == 0:
+            if epoch % self.config.save_frequency == 0 and self.rank == 0:
                 self.save(epoch)
-        self.save(tc.joint_epochs - 1)
+        if self.rank == 0:
+            self.save(tc.joint_epochs - 1)
         return last
 
     def train_epoch(self, epoch: int, draws: Optional[Draws] = None
@@ -409,15 +443,18 @@ class JointOptimizationRunner:
         log: Dict[str, float] = {}
         if (self.weights.supervision > 0 and tc.supervise_every > 0
                 and epoch >= pose_only and epoch % tc.supervise_every == 0):
-            self._bases = self.dominant_bases()
+            self._bases = broadcast_from_rank0(
+                self.dominant_bases() if self.rank == 0 else None)
             batches = [self.supervision_batch(self._rng)
                        for _ in range(tc.supervision_epochs)]
             sup = self._zero_sums(self.SUP_METRICS)
             for arrays in batches:
                 sup = self.supervised_step(sup, arrays)
             n_sup = max(len(batches), 1)
-            log.update({f"supervised_{k}": v / n_sup for k, v in zip(
-                sup, torch.stack(list(sup.values())).tolist())})
+            sup_values = torch.stack(list(sup.values()))
+            all_reduce_flat([sup_values])
+            log.update({f"supervised_{k}": v / n_sup
+                        for k, v in zip(sup, sup_values.tolist())})
 
         window = self.model.to_device(self.model.window_weights)
         near = float(np.float32(self.model.near))
@@ -431,14 +468,17 @@ class JointOptimizationRunner:
                                                           self.joint_steps)
             sums = self.joint_step(sums, batch, step_draws, statics, near,
                                    far, window)
-            n_rays = batch["uv"].shape[0]
+            n_rays = batch["uv"].shape[0] * self.world_size
             count += 1
             self.joint_steps += 1
-        values = torch.stack(list(sums.values())).tolist()   # synchronizes
+        values = torch.stack(list(sums.values()))
+        all_reduce_flat([values])
+        values = values.tolist()                               # synchronizes
         elapsed = time.perf_counter() - t0
         log.update({k: v / max(count, 1) for k, v in zip(sums, values)})
         log["rays_per_sec"] = count * n_rays / max(elapsed, 1e-9)
-        self.logger.log(log, step=epoch)
+        if self.logger is not None:
+            self.logger.log(log, step=epoch)
         return log
 
     def save(self, epoch: int) -> str:

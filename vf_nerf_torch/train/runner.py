@@ -18,9 +18,18 @@
   ``numerical_jacobian`` keeps them frozen), every step computes the
   directional derivatives, and static fine growth is off, so each +5 of the
   fine count changes the sample axis. The running statistics are in the
-  checkpoints. ``num_devices > 1`` raises ``NotImplementedError``
-  (``ROADMAP.md`` A.6).
+  checkpoints.
 - The learning rate decays over ``num_epochs * len(dataset)`` steps.
+- Data parallel (``ROADMAP.md`` A.6): one process per device, NCCL on
+  CUDA and gloo on the CPU (``exp_runner`` spawns the ranks, or
+  ``torchrun`` starts them; the runner joins the group they set up).
+  ``num_devices`` 0 means every local device (the CPU is one). Every rank
+  builds the same global batch from the shared seed, trims it to a
+  multiple of the rank count (the JAX runner's ``_batch_rays``), trains on
+  its ``local_ray_slice`` and takes the global step's draws
+  (``parallel/train_step.py``); the epoch's metric sums are summed over the
+  ranks before its read. Rank 0 alone writes checkpoints, logs and the
+  convergence flag; every rank loads the same checkpoint on resume.
 
 On the card a step is a sequence of launches (the shipped conf: 5
 fused-MLP, 2 ray-march and 1 ray-march-backward; ``train_step.py`` lists
@@ -55,6 +64,10 @@ from vf_nerf_torch.config.parser import config_device
 from vf_nerf_torch.config.schema import VFRunnerConfig, asdict_config
 from vf_nerf_torch.datasets import dataset_dict
 from vf_nerf_torch.models.nerf import VectorFieldNerf, param_groups
+from vf_nerf_torch.parallel.mesh import all_reduce_flat, trim_to_multiple
+from vf_nerf_torch.parallel.multihost import (broadcast_from_rank0,
+                                              check_world, local_device,
+                                              local_ray_slice)
 from vf_nerf_torch.parallel.train_step import (METRIC_KEYS,
                                                SupervisionStatics,
                                                make_train_step, pack_batch,
@@ -79,11 +92,11 @@ class VectorFieldNerfRunner:
         self.config = config
         self.seed = run_seed()
         np.random.seed(self.seed)
-        if config.vf_nerf_config.device_config.num_devices > 1:
-            raise NotImplementedError(
-                "training on more than one device is not ported yet "
-                "(ROADMAP.md A.6)")
-        device = config_device(config) if device is None else device
+        self.rank, self.world_size = check_world(
+            config.vf_nerf_config.device_config.num_devices)
+        if device is None:
+            device = config_device(config) if self.world_size == 1 \
+                else local_device(config_device(config))
 
         self.dataset = dataset_dict[config.dataset_config.dataset_name](
             config.dataset_config)
@@ -112,7 +125,8 @@ class VectorFieldNerfRunner:
         self.logger = MetricsLogger(
             run_dir=self.run_dir, project=config.wandb_project,
             run_name=config.expname, run_id=config.timestamp,
-            config=asdict_config(config), offline=config.offline)
+            config=asdict_config(config), offline=config.offline) \
+            if self.rank == 0 else None
         self._step_cache: Dict[Any, Callable] = {}
         self._epoch_rng = np.random.RandomState(self.seed)
         self._pending_log: Optional[Dict[str, Any]] = None
@@ -122,16 +136,18 @@ class VectorFieldNerfRunner:
 
     # ------------------------------------------------------------- folders
     def create_output_folders(self) -> None:
-        """Reference ``create_output_folders`` (``:79-113``)."""
+        """Reference ``create_output_folders`` (``:79-113``); the ranks
+        share rank 0's timestamp."""
         cfg = self.config
         if cfg.timestamp == "":
-            cfg.timestamp = io_utils.get_timestamp()
+            cfg.timestamp = broadcast_from_rank0(io_utils.get_timestamp())
         self.run_dir = os.path.join(cfg.exps_folder, cfg.expname,
                                     cfg.timestamp)
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints", "vf_nerf")
         os.makedirs(self.ckpt_dir, exist_ok=True)
         conf_copy = os.path.join(self.run_dir, "vf_nerf.conf")
-        if not os.path.exists(conf_copy) and os.path.exists(cfg.config_path):
+        if self.rank == 0 and not os.path.exists(conf_copy) and \
+                os.path.exists(cfg.config_path):
             shutil.copy2(cfg.config_path, conf_copy)
 
     # -------------------------------------------------------------- resume
@@ -151,7 +167,7 @@ class VectorFieldNerfRunner:
                 self.model.fine_n_samples +
                 5 * (cfg.start_epoch // rs.increase_every),
                 rs.max_samples)
-        print(f"Loaded model from {cfg.checkpoint}")
+        self._say(f"Loaded model from {cfg.checkpoint}")
 
     def _load_vf_init(self, init_path: str) -> None:
         """VF-init weights: the ``.pkl`` beside ``init_path`` (written by
@@ -169,9 +185,14 @@ class VectorFieldNerfRunner:
                                blob.get("vf_net", blob), init_path)
             self.model.optimizer.init(param_groups(self.model.modules))
         else:
-            print(f"WARNING: VF init weights not found at {init_path!r}; "
-                  "starting from the seeded init. Run `python -m "
-                  "vf_nerf_torch.train.vf_init` to fit them.")
+            self._say(f"WARNING: VF init weights not found at "
+                      f"{init_path!r}; starting from the seeded init. Run "
+                      "`python -m vf_nerf_torch.train.vf_init` to fit them.")
+
+    def _say(self, what: str) -> None:
+        """Print on rank 0."""
+        if self.rank == 0:
+            print(what)
 
     # ---------------------------------------------------------------- step
     def _static_fine(self) -> bool:
@@ -190,7 +211,7 @@ class VectorFieldNerfRunner:
             n_fine=n_fine, compute_dir_derivatives=self.train_dir_derivatives)
         sup = SupervisionStatics.from_config(
             self.config.vf_nerf_config, self.init_method,
-            n_rays=self.dataset.total_pixels,
+            n_rays=self._batch_rays(),
             n_samples=statics.n_coarse + statics.n_fine,
             border_radius=self.config.dataset_config.border_radius)
         return statics, sup
@@ -211,11 +232,18 @@ class VectorFieldNerfRunner:
                 self.config.vf_loss_weights, self.config.vf_loss_config)
         return self._step_cache[key]
 
+    def _batch_rays(self) -> int:
+        """The global batch: the dataset's rays trimmed to a multiple of
+        the rank count."""
+        return trim_to_multiple(self.dataset.total_pixels, self.world_size)
+
     def _feed(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        """One packed (R, 38) batch on the device."""
-        n = self.dataset.total_pixels
+        """This rank's slice of one packed (R, 38) global batch on the
+        device."""
+        n = self._batch_rays()
         packed = torch.from_numpy(pack_batch(
             {k: v[:n] for k, v in batch.items() if v.size > 0}))
+        packed = packed[local_ray_slice(n, self.rank, self.world_size)]
         if self.device.type != "cuda":
             return packed.to(self.device)
         return packed.pin_memory().to(self.device, non_blocking=True)
@@ -233,17 +261,23 @@ class VectorFieldNerfRunner:
                         self.model.fine_n_samples + 5, rs.max_samples)
                 logged = self.train_epoch(epoch, draws=draws)
                 if epoch % cfg.save_frequency == 0:
-                    self.model.save(epoch, self.ckpt_dir)
+                    self._save(epoch)
                 if logged is not None:
-                    print(f"Epoch {logged[0]}: Loss {logged[1]}")
+                    self._say(f"Epoch {logged[0]}: Loss {logged[1]}")
         finally:
             # The last epoch's log, even after a failure.
             final = self._resolve_pending_log()
             if final is not None:
-                print(f"Epoch {final[0]}: Loss {final[1]}")
+                self._say(f"Epoch {final[0]}: Loss {final[1]}")
         cfg.start_epoch = cfg.num_epochs + 1
-        self.model.save(cfg.num_epochs - 1, self.ckpt_dir)
-        self._write_convergence_flag()
+        self._save(cfg.num_epochs - 1)
+        if self.rank == 0:
+            self._write_convergence_flag()
+
+    def _save(self, epoch: int) -> None:
+        """A checkpoint, written by rank 0."""
+        if self.rank == 0:
+            self.model.save(epoch, self.ckpt_dir)
 
     def train_epoch(self, epoch: int, draws: Optional[Draws] = None
                     ) -> Optional[Tuple[int, float]]:
@@ -275,10 +309,13 @@ class VectorFieldNerfRunner:
             count += 1
 
         # The epoch's numbers in one copy to pinned host memory, read after
-        # the next epoch's steps are enqueued.
+        # the next epoch's steps are enqueued; the metric sums summed over
+        # the ranks first.
+        metrics = torch.stack([sums[k] for k in METRIC_KEYS])
+        all_reduce_flat([metrics])
         density = self.model.density_scalar_tensors()
-        values = torch.stack([sums[k] for k in METRIC_KEYS] +
-                             [density[k] for k in DENSITY_KEYS])
+        values = torch.cat([metrics, torch.stack([density[k]
+                                                  for k in DENSITY_KEYS])])
         host = torch.empty(values.shape, dtype=values.dtype,
                            pin_memory=self.device.type == "cuda")
         host.copy_(values, non_blocking=True)
@@ -310,11 +347,11 @@ class VectorFieldNerfRunner:
         averages.update({f"w_{i}": float(w)
                          for i, w in enumerate(pending["window"])})
         now = time.perf_counter()
-        averages["rays_per_sec"] = (pending["count"] *
-                                    self.dataset.total_pixels /
+        averages["rays_per_sec"] = (pending["count"] * self._batch_rays() /
                                     (now - self._last_read))
         self._last_read = now
-        self.logger.log(averages, step=pending["epoch"])
+        if self.logger is not None:
+            self.logger.log(averages, step=pending["epoch"])
         self.final_loss = averages["loss"]
         return pending["epoch"], averages["loss"]
 
