@@ -210,12 +210,36 @@ Phases, each printing one JSON line:
    cpu]`` (a weight replica on the CPU, refreshed by ``sync_replicas``
    after a weight change) the card's rays and octants (res 48) bit-equal
    to one device, the CPU's held as phases 5 and 13 hold the plain path.
-   Phases 10-18 write under ``build/smoke_run`` and delete it at the end.
+19. reuse_coarse: ``VectorFieldNerf.render`` with ``reuse_coarse`` on the
+   1024 entry rays: exactly 3 fused-MLP and 2 ray-march launches (the
+   coarse VF over 102,400 points keeping all 259 outputs, the extra depths'
+   VF over 30,720, the colour net over 133,120), rgb and depth held to the
+   port's plain CPU path (phase 5's limits) and to the recompute render on
+   the card from the same draws; ms per render of both in alternating
+   blocks; each launch against its plain version with its device ms,
+   bound and cuBLAS chain; the reorder's ms.
+20. options: (a) a data-parallel rank's launches at 512 of the step's 1024
+   rays timed one at a time (phase 18's ranks share the card): the coarse
+   VF, the fine VF and colour net in save mode, the shell VF, the march and
+   its backward, each with its bound and cuBLAS chain; (b)
+   ``compute_dtype = "bfloat16"``: the train-mode-BatchNorm step and the
+   analytic DD step beside float32 (finite, parameters float32, ms and peak
+   memory; the bf16 loss on 256 rays held as the CPU test holds the port
+   to JAX, the limits from the CPU bf16 path alone: farther from float64
+   than the card's float32 loss, within 2 × the CPU's distance from
+   float64, and within that distance of the CPU's loss), the folded
+   render in bf16 bit-equal to float32 with
+   the same 3 + 2 launches; (c) the production step under ``train_remat``
+   "none", "full" and "dots": gradients within 1e-6·max|g| of "none"'s,
+   ms per step and peak memory of each; (d) LPIPS from a generated npz on
+   the card against the CPU within 1e-5.
+   Phases 10-20 write under ``build/smoke_run`` and delete it at the end.
 
 ``python3 chip_smoke.py --train-modes`` runs the build, phase 10 and phase
 16 alone (``chiprun_out/train_modes.json``); ``--protocol`` the build and
 phase 17 (``chiprun_out/protocol.json``); ``--parallel`` the build and
-phase 18 (``chiprun_out/parallel.json``).
+phase 18 (``chiprun_out/parallel.json``); ``--options`` the build and
+phases 19 and 20 (``chiprun_out/options.json``).
 
 ``python3 chip_smoke.py --joint-scan [--epochs 60 120 240 480] [--scene
 smoke|efficacy] [--resume-at N] [--seeds 0 1 ...]`` runs a study instead:
@@ -269,7 +293,8 @@ from vf_nerf_torch.evaluation.mc.pipeline import quadrant_translations
 from vf_nerf_torch.kernels import load_library
 from vf_nerf_torch.models.nerf import VectorFieldNerf
 from vf_nerf_torch.models.networks import WeightNormLinear, dense_and_norm
-from vf_nerf_torch.models.renderer import draw_uniforms, render_rays
+from vf_nerf_torch.models.renderer import (_reuse_coarse, draw_uniforms,
+                                           render_rays)
 from vf_nerf_torch.ops.density import DensityParams
 from vf_nerf_torch.ops.embedding import positional_encoding
 from vf_nerf_torch.ops.fused_mlp import (_launch, _sm_count, acts_shape,
@@ -493,6 +518,64 @@ def addmm_chain(weights, x, skip_at, final_act, keep=None):
     return torch.tanh(h) if final_act == "tanh" else torch.sigmoid(h)
 
 
+def mlp_inputs(model, weights, n, act, gen):
+    """``n`` inputs of a net: the VF net's (tanh) positional encodings of
+    points in [-1, 1]^3, the colour net's uniform in [-1, 1]."""
+    dev = weights[0][0].device
+    if act == "tanh":
+        pts = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
+        return positional_encoding(
+            pts, model.config.vf_net_config.embedder_multires).contiguous()
+    return torch.rand((n, weights[0][0].shape[0]), generator=gen,
+                      device=dev) * 2 - 1
+
+
+def forward_case(name, weights, x, skip, act, count_kernels=True) -> dict:
+    """The fused MLP's no-save launch on ``x`` against its plain version
+    (``MLP_TOL``), its time beside the plain version's and the cuBLAS
+    ``addmm`` chain's, and its 3xTF32 and f32-FMA bounds (each the larger
+    of the FLOP and the byte time). With ``count_kernels`` one call must
+    enqueue one CUDA kernel (``torch.profiler``, phase 3); without (phases
+    19 and 20, late in the script, where the profiler keeps no record of
+    these launches), the device time is ``queued_ms``'s."""
+    n = x.shape[0]
+    out = fused_mlp(weights, x, skip_at=skip, final_act=act)
+    ref = mlp_reference(weights, x, skip, act)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    finite = bool(torch.isfinite(out).all())
+    check(finite and err <= MLP_TOL,
+          f"fused_mlp {name}: max abs err {err} > {MLP_TOL}")
+    if count_kernels:
+        n_kernels, device_ms, names = kernels_per_call(
+            lambda: fused_mlp(weights, x, skip, act))
+        check(n_kernels == 1,
+              f"fused_mlp {name}: one call enqueued {n_kernels} kernels "
+              f"{names}")
+    else:
+        n_kernels = None
+        device_ms = queued_ms(lambda: fused_mlp(weights, x, skip, act),
+                              calls=20)
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
+    flop = 2.0 * n * macs
+    nbytes = 4.0 * (n * (x.shape[1] + weights[-1][0].shape[1]) +
+                    sum(w.numel() + b.numel() for w, b in weights))
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    row = dict(
+        case=name, points=n, in_dim=x.shape[1],
+        out_dim=weights[-1][0].shape[1], macs_per_point=macs, flop=flop,
+        max_abs_err=err, tol=MLP_TOL, kernels_per_call=n_kernels,
+        device_ms=device_ms,
+        ms=cuda_ms(lambda: fused_mlp(weights, x, skip, act)),
+        plain_ms=cuda_ms(lambda: mlp_reference(weights, x, skip, act)),
+        library_ms=cuda_ms(lambda: addmm_chain(weights, x, skip, act)),
+        bound_ms=max(3 * flop / PEAK_TF32_FLOPS * 1e3, byte_ms),
+        bound_f32_fma_ms=max(flop / PEAK_F32_FLOPS * 1e3, byte_ms))
+    row["tflops_f32_equivalent"] = flop / row["ms"] / 1e9
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
 def phase_mlp(model, dev):
     vf_w, rn_w = model.modules.folded_weights()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -508,47 +591,15 @@ def phase_mlp(model, dev):
              ("colour", rn_w, n_all, None, "sigmoid")]
     flop_total = 0.0
     for name, weights, n, skip, act in cases:
-        if act == "tanh":
-            pts = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
-            x = positional_encoding(
-                pts, model.config.vf_net_config.embedder_multires)
-        else:
-            x = torch.rand((n, weights[0][0].shape[0]), generator=gen,
-                           device=dev) * 2 - 1
-        out = fused_mlp(weights, x, skip_at=skip, final_act=act)
-        ref = mlp_reference(weights, x, skip, act)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        finite = bool(torch.isfinite(out).all())
-        check(finite and err <= MLP_TOL,
-              f"fused_mlp {name}: max abs err {err} > {MLP_TOL}")
-        n_kernels, _, names = kernels_per_call(
-            lambda: fused_mlp(weights, x, skip, act))
-        check(n_kernels == 1,
-              f"fused_mlp {name}: one call enqueued {n_kernels} kernels "
-              f"{names}")
-        macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
-        flop = 2.0 * n * macs
-        nbytes = 4.0 * (n * (x.shape[1] + weights[-1][0].shape[1]) +
-                        sum(w.numel() + b.numel() for w, b in weights))
-        byte_ms = nbytes / PEAK_BYTES * 1e3
-        row = dict(
-            case=name, points=n, in_dim=x.shape[1],
-            out_dim=weights[-1][0].shape[1], macs_per_point=macs,
-            max_abs_err=err, tol=MLP_TOL, kernels_per_call=n_kernels,
-            ms=cuda_ms(lambda: fused_mlp(weights, x, skip, act)),
-            plain_ms=cuda_ms(lambda: mlp_reference(weights, x, skip, act)),
-            library_ms=cuda_ms(lambda: addmm_chain(weights, x, skip, act)),
-            bound_ms=max(3 * flop / PEAK_TF32_FLOPS * 1e3, byte_ms),
-            bound_f32_fma_ms=max(flop / PEAK_F32_FLOPS * 1e3, byte_ms))
-        row["tflops_f32_equivalent"] = flop / row["ms"] / 1e9
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        x = mlp_inputs(model, weights, n, act, gen)
+        row = forward_case(name, weights, x, skip, act)
         rows.append(row)
-        flop_total += flop
+        flop_total += row["flop"]
         for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_f32_fma_ms"):
             totals[k] += row[k]
-        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        totals["max_abs_err"] = max(totals["max_abs_err"],
+                                    row["max_abs_err"])
     check(totals["ms"] < totals["library_ms"],
           f"fused_mlp {totals['ms']} ms per render does not beat the cuBLAS "
           f"chain's {totals['library_ms']} ms")
@@ -2765,13 +2816,13 @@ def queued_ms(fn, calls: int = 50) -> float:
     return start.elapsed_time(end) / calls
 
 
-def march_case(n_samples, dev, gen) -> dict:
-    """The march forward (rgb and weights) and its backward at (1024,
+def march_case(n_samples, dev, gen, n_rays: int = N_RAYS) -> dict:
+    """The march forward (rgb and weights) and its backward at (``n_rays``,
     ``n_samples``), ``n_valid`` None, against their plain versions, with
     device times (``queued_ms``), plain times and byte bounds. (One CUDA
     kernel per wrapper call at these shapes: the modes' steps above count
     them.)"""
-    normals, dirs, z, rgb = march_inputs(N_RAYS, n_samples, n_samples, dev)
+    normals, dirs, z, rgb = march_inputs(n_rays, n_samples, n_samples, dev)
     taps = torch.full((11,), 1.0 / 11, device=dev)
     prm = DensityParams(*(torch.tensor(v, device=dev)
                           for v in (0.5, 100.0, 0.7)))
@@ -2782,14 +2833,14 @@ def march_case(n_samples, dev, gen) -> dict:
     fwd_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     check(all(bool(torch.allclose(a, b, **MARCH_TOL))
               for a, b in zip(out, ref)),
-          f"fused_ray_march (1024, {n_samples}) n_valid None: max abs err "
-          f"{fwd_err}")
+          f"fused_ray_march ({n_rays}, {n_samples}) n_valid None: max abs "
+          f"err {fwd_err}")
     st = MarchStatics((1e-4, 1e9), 1.0, (0.6, 1.0), -0.5, -2.0, True, False,
                       None)
     args = (normals, dirs, z, rgb, torch.tensor((0.5, 100.0, 0.7),
                                                 device=dev), taps, st,
-            torch.randn((N_RAYS, 3), generator=gen, device=dev),
-            torch.randn((N_RAYS,), generator=gen, device=dev), None)
+            torch.randn((n_rays, 3), generator=gen, device=dev),
+            torch.randn((n_rays,), generator=gen, device=dev), None)
     got = ray_march_backward(*args)
     got = (got[0], got[1], got[2].sum(0))
     want = ray_march_backward_reference(*args)
@@ -2798,16 +2849,16 @@ def march_case(n_samples, dev, gen) -> dict:
         atol = 1e-5 * max(float(b.abs().max()), 1.0)
         bwd_err = max(bwd_err, float((a - b).abs().max()))
         check(bool(torch.allclose(a, b, rtol=1e-4, atol=atol)),
-              f"ray_march_backward (1024, {n_samples}) n_valid None {name}: "
-              f"max abs err {float((a - b).abs().max())}")
+              f"ray_march_backward ({n_rays}, {n_samples}) n_valid None "
+              f"{name}: max abs err {float((a - b).abs().max())}")
     fwd_ms = queued_ms(lambda: fused_ray_march(normals, dirs, z, rgb, prm,
                                                taps, **kw))
     bwd_ms = queued_ms(lambda: ray_march_backward(*args))
     s = n_samples
-    fwd_bytes = 4.0 * (N_RAYS * s * 7 + N_RAYS * 3 + 11 + 3 + N_RAYS * s +
-                       N_RAYS * 4)
-    bwd_bytes = 4.0 * (N_RAYS * s * 7 + N_RAYS * 3 + N_RAYS * 4 + 11 + 3 +
-                       N_RAYS * s * 6 + N_RAYS * 3)
+    fwd_bytes = 4.0 * (n_rays * s * 7 + n_rays * 3 + 11 + 3 + n_rays * s +
+                       n_rays * 4)
+    bwd_bytes = 4.0 * (n_rays * s * 7 + n_rays * 3 + n_rays * 4 + 11 + 3 +
+                       n_rays * s * 6 + n_rays * 3)
     return dict(
         samples=s, forward_max_abs_err=fwd_err,
         backward_max_abs_err=bwd_err, forward_ms=fwd_ms,
@@ -3658,6 +3709,423 @@ def phase_parallel(dev) -> dict:
     return row
 
 
+# ------------------------------------------------- phases 19 and 20: options
+# Phase 19's ms per render: blocks of renders of each kind, alternated.
+REUSE_TIMING_BLOCKS = 3
+REUSE_TIMING_RENDERS = 10
+# Phase 20: the unfolded steps in bf16 beside float32 (train-mode BatchNorm
+# without and with the analytic DD loss), and the remat modes.
+BF16_MODES = {"train_bn": dict(), "analytic_dd": dict(dd=True)}
+REMAT_GRAD_TOL = 1e-6
+LPIPS_TOL = 1e-5
+
+
+def march_forward_row(n_rays, n_samples, weights_only, dev) -> dict:
+    """The march forward at (``n_rays``, ``n_samples``), threshold -0.2,
+    against its plain version (``MARCH_TOL``; weights only: with zero rgb):
+    device ms (``queued_ms``), plain ms, byte bound."""
+    normals, dirs, z, rgb = march_inputs(n_rays, n_samples, n_samples, dev)
+    rgb_in = None if weights_only else rgb
+    prm = DensityParams(*(torch.tensor(v, device=dev)
+                          for v in (0.5, 100.0, 0.7)))
+    taps = torch.full((11,), 1.0 / 11, device=dev)
+    kw = dict(beta_bounds=(1e-4, 1e9), scale_min=1.0, mean_bounds=(0.6, 1.0),
+              cutoff=-0.5, dir_to_normal_th=-0.2, normalize=True)
+    out = fused_ray_march(normals, dirs, z, rgb_in, prm, taps, **kw)
+    ref = ray_march_reference(normals, dirs, z, torch.zeros_like(rgb)
+                              if weights_only else rgb, prm, taps, **kw)
+    errs = [float((a - b).abs().max()) for a, b in zip(out, ref)
+            if a is not None]
+    check(all(bool(torch.allclose(a, b, **MARCH_TOL))
+              for a, b in zip(out, ref) if a is not None),
+          f"fused_ray_march ({n_rays}, {n_samples}) weights_only="
+          f"{weights_only}: max abs err {max(errs)}")
+    rgb_bytes = 0 if weights_only else n_rays * n_samples * 3 + n_rays * 4
+    nbytes = 4.0 * (n_rays * n_samples * 4 + n_rays * 3 + 11 + 3 +
+                    n_rays * n_samples + rgb_bytes)
+    return dict(rays=n_rays, samples=n_samples, weights_only=weights_only,
+                max_abs_err=max(errs),
+                ms=queued_ms(lambda: fused_ray_march(
+                    normals, dirs, z, rgb_in, prm, taps, **kw)),
+                plain_ms=cuda_ms(lambda: ray_march_reference(
+                    normals, dirs, z, rgb, prm, taps, **kw), iters=10),
+                bound_ms=nbytes / PEAK_BYTES * 1e3)
+
+
+def reorder_ms(model, statics) -> float:
+    """Device ms of the reuse render's fine pass without its VF launch
+    (``renderer._reuse_coarse`` with the extra rows given): the extra
+    depths, the stable sort of the (1024, 130) depths and the copies of the
+    coarse and extra VF rows (259 floats) to their sorted places."""
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n_coarse, n_fine = statics.n_coarse, statics.n_fine
+    width = model.modules.vf.layers[-1].weight.shape[0]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    z_coarse = torch.sort(rand(N_RAYS, n_coarse) * 4.0, dim=1).values
+    weights = rand(N_RAYS, n_coarse)
+    vf_coarse, vf_extra = rand(N_RAYS * n_coarse, width), \
+        rand(N_RAYS * n_fine, width)
+    t_fine, u_extra = rand(N_RAYS, n_fine), rand(N_RAYS, n_fine)
+    cam, dirs = rand(N_RAYS, 3), rand(N_RAYS, 3)
+    fine_range = model.config.ray_sampler_config.fine_range
+    return cuda_ms(lambda: _reuse_coarse(
+        statics, vf_coarse, z_coarse, weights, fine_range, model.near,
+        model.far, t_fine, u_extra, cam, dirs, lambda pts: vf_extra),
+        iters=20)
+
+
+def phase_reuse_coarse(dev) -> dict:
+    """Phase 19: ``VectorFieldNerf.render`` with ``reuse_coarse`` on the
+    1024 entry rays: 3 fused-MLP and 2 march launches, held to the port's
+    plain path on the CPU (the reuse render there) and to the recompute
+    render on the card from the same draws; ms per render of both, in
+    alternating blocks; each launch of the reuse render (the coarse VF
+    over 102,400 points keeping all 259 outputs, the extra depths' VF over
+    30,720, the colour net over 133,120, the two marches) against its
+    plain version, with device ms, bound and the cuBLAS chain; the
+    reorder's ms alone. Device times are ``queued_ms``'s."""
+    model = build_model(dev)
+    uv, pose, intr = entry_inputs()
+    statics = model.render_statics(reuse_coarse=True)
+    draw_state = model.generator.get_state()
+    reset_launches()
+    out = model.render(pose, uv, intr, epoch=0, reuse_coarse=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"fused_mlp": 3, "fused_ray_march": 2,
+                       "ray_march_backward": 0},
+          f"reuse render launches {launches}, expected 3 MLP and 2 march")
+    check(out["rgb"].shape == (N_RAYS, 3) and
+          bool(torch.isfinite(out["rgb"]).all() and
+               torch.isfinite(out["depth"]).all()),
+          "reuse render outputs finite, (1024, 3)")
+    share, errs, _ = hold_render(model, out, torch.from_numpy(uv),
+                                 torch.from_numpy(pose),
+                                 torch.from_numpy(intr), statics,
+                                 draw_state, "reuse render")
+    model.generator.set_state(draw_state)
+    recomputed = model.render(pose, uv, intr, epoch=0)
+    agree = out["argmax_coarse"] == recomputed["argmax_coarse"]
+    vs_recompute = {k: float((out[k][agree] - recomputed[k][agree]).abs()
+                             .max()) for k in RENDER_TOL}
+    check(bool(agree.all()), "reuse and recompute renders: coarse argmax "
+          "differs")
+    for k, tol in RENDER_TOL.items():
+        check(vs_recompute[k] <= tol,
+              f"reuse render {k} vs the recompute render: {vs_recompute[k]}")
+
+    times = {"reuse": [], "recompute": []}
+    for reuse in (True, False):
+        for _ in range(2):
+            model.render(pose, uv, intr, epoch=0, reuse_coarse=reuse)
+    for _ in range(REUSE_TIMING_BLOCKS):
+        for reuse in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REUSE_TIMING_RENDERS):
+                model.render(pose, uv, intr, epoch=0, reuse_coarse=reuse)
+            torch.cuda.synchronize()
+            times["reuse" if reuse else "recompute"].append(
+                (time.perf_counter() - t0) / REUSE_TIMING_RENDERS * 1e3)
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    vf_w, rn_w = model.modules.folded_weights()
+    skip = model.modules.vf.skip_at
+    n_coarse, n_fine = N_RAYS * statics.n_coarse, N_RAYS * statics.n_fine
+    mlp = [forward_case(name, w, mlp_inputs(model, w, n, act, gen), sk, act,
+                        count_kernels=False)
+           for name, w, n, sk, act in (
+               ("coarse_vf", vf_w, n_coarse, skip, "tanh"),
+               ("extra_vf", vf_w, n_fine, skip, "tanh"),
+               ("colour", rn_w, n_coarse + n_fine, None, "sigmoid"))]
+    march = [march_forward_row(N_RAYS, statics.n_coarse, True, dev),
+             march_forward_row(N_RAYS, statics.n_coarse + statics.n_fine,
+                               False, dev)]
+    row = dict(phase="reuse_coarse", launches=launches,
+               argmax_agreement=share, max_abs_err_vs_cpu_plain=errs,
+               max_abs_err_vs_recompute=vs_recompute, tol=RENDER_TOL,
+               ms_per_render=times, mlp=mlp, march=march,
+               reorder_ms=reorder_ms(model, statics))
+    emit(row)
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def dtype_model(dev, dtype, **mode):
+    """(runner config, model) of the shipped conf with ``dtype`` compute
+    and a train mode's changes, seed 0, the VF kernels gained."""
+    run = with_mode(runner_config(), **mode)
+    run.vf_nerf_config.device_config.compute_dtype = dtype
+    model = VectorFieldNerf(run.vf_nerf_config, seed=0, device=dev)
+    gain_vf(model, VF_GAIN)
+    model.near, model.far = 0.0, 4.0
+    return run, model
+
+
+def bf16_loss_hold(run, model, f32_modules, statics) -> dict:
+    """The bf16 loss of ``MODE_HOLD_RAYS`` rays on the card against the
+    port's bf16 plain path on the CPU, as the CPU test holds the port to
+    JAX (``assert_follows_jax``), with the limits taken from the CPU bf16
+    path alone: a bf16 rounding shows on the card (its loss farther from
+    float64 than the card's float32 loss from ``f32_modules``, the same
+    weights), the card's distance from float64 within 2 × the CPU's, and
+    the card within the CPU's distance of the CPU."""
+    rays = MODE_HOLD_RAYS
+    dev = model.device
+    batch = {k: v[:rays] for k, v in train_batch(dev).items()}
+    sup = mode_supervision(run, statics, rays)
+    draws = train.draw_step(statics, sup, rays, model.generator, dev)
+    taps = torch.from_numpy(model.update_annealing(0)).to(dev)
+    losses = []
+    for mods, d, dt in ((model.modules, dev, torch.float32),
+                        (copy.deepcopy(model.modules).cpu(), "cpu",
+                         torch.float32),
+                        (f32_modules, dev, torch.float32),
+                        (copy.deepcopy(f32_modules).cpu().double(), "cpu",
+                         torch.float64)):
+        loss_fn = train.make_loss_fn(mods, statics, sup, run.vf_loss_weights,
+                                     run.vf_loss_config)
+        total, _, _ = loss_fn(
+            {k: v.to(d, dt) for k, v in batch.items()},
+            {k: v.to(d, dt) for k, v in draws.items()}, 0, taps.to(d, dt),
+            model.near, model.far, torch.zeros(3, device=d, dtype=dt))
+        losses.append(float(total.detach()))
+        del total
+    card, cpu, card_f32, f64 = losses
+    d_card, d_cpu, d_f32 = (abs(x - f64) for x in (card, cpu, card_f32))
+    check(np.isfinite(card) and d_card > d_f32,
+          f"bf16 loss on the card {card} no farther from float64 {f64} "
+          f"than the card's float32 loss {card_f32}: no bf16 rounding")
+    check(d_card <= 2.0 * d_cpu,
+          f"bf16 loss on the card {card}: {d_card} from float64 {f64}, "
+          f"more than 2 × the CPU bf16 path's {d_cpu}")
+    check(abs(card - cpu) <= d_cpu,
+          f"bf16 loss on the card {card} vs the CPU bf16 path {cpu}: more "
+          f"than the CPU's distance {d_cpu} from float64 {f64}")
+    return dict(rays=rays, card=card, cpu=cpu, card_f32=card_f32, f64=f64,
+                gap=abs(card - cpu), card_vs_f64=d_card, cpu_vs_f64=d_cpu,
+                f32_vs_f64=d_f32, limit=d_cpu)
+
+
+def step_timing(step_fn, n_iter: int = 5) -> dict:
+    """ms per step and peak memory over ``n_iter`` steps after one."""
+    step_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        sums = step_fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_iter * 1e3
+    return dict(ms_per_step=ms, peak_memory_gb=torch.cuda
+                .max_memory_allocated() / 1e9, loss=float(sums["loss"]))
+
+
+def bf16_phase(dev) -> dict:
+    """Phase 20 (a): the train-mode-BatchNorm step and the analytic DD step
+    in bf16 beside float32; the folded render in bf16 bit-equal to
+    float32 with the same launches."""
+    batch = train_batch(dev)
+    rows = {}
+    for name, mode in BF16_MODES.items():
+        progress(f"compute_dtype: {name}")
+        models = {dt: dtype_model(dev, dt, **mode)
+                  for dt in ("float32", "bfloat16")}
+        for _, model in models.values():
+            model.train()
+        # The float32 and float64 references: the float32 model before
+        # its steps.
+        f32_modules = copy.deepcopy(models["float32"][1].modules)
+        row = {}
+        for dt, (run, model) in models.items():
+            statics = model.render_statics(
+                compute_dir_derivatives=mode.get("dd", False))
+            sup = mode_supervision(run, statics, N_RAYS)
+            step = train.make_train_step(model.modules, model.optimizer,
+                                         statics, sup, run.vf_loss_weights,
+                                         run.vf_loss_config)
+            taps = torch.from_numpy(model.update_annealing(0)).to(dev)
+
+            def one_step():
+                return step(train.zero_metric_sums(dev), batch, 0, taps,
+                            model.near, model.far,
+                            torch.zeros(3, device=dev),
+                            generator=model.generator)
+
+            if dt == "bfloat16":
+                row["hold"] = bf16_loss_hold(run, model, f32_modules,
+                                             statics)
+            row[dt] = step_timing(one_step)
+            check(np.isfinite(row[dt]["loss"]) and all(
+                bool(torch.isfinite(p).all()) and p.dtype == torch.float32
+                for p in model.modules.parameters()),
+                f"{name} {dt}: loss {row[dt]['loss']} or a parameter not "
+                "finite float32")
+        rows[name] = row
+        emit(dict(phase="compute_dtype", mode=name, **row))
+        del models, f32_modules
+        torch.cuda.empty_cache()
+
+    uv, pose, intr = entry_inputs()
+    renders = {}
+    for dt in ("float32", "bfloat16"):
+        _, model = dtype_model(dev, dt)
+        model.generator.manual_seed(20)
+        reset_launches()
+        renders[dt] = (model.render(pose, uv, intr, epoch=0),
+                       read_launches())
+        torch.cuda.synchronize()
+        del model
+    (f32, f32_launches), (b16, b16_launches) = renders["float32"], \
+        renders["bfloat16"]
+    equal = all(torch.equal(f32[k], b16[k]) for k in
+                ("rgb", "depth", "z_vals", "normals", "weights"))
+    check(equal and f32_launches == b16_launches ==
+          {"fused_mlp": 3, "fused_ray_march": 2, "ray_march_backward": 0},
+          f"bf16 folded render: bit-equal {equal}, launches {b16_launches} "
+          f"against float32's {f32_launches}")
+    rows["folded_render"] = dict(bit_equal=equal, launches=b16_launches)
+    return rows
+
+
+def remat_phase(dev) -> dict:
+    """Phase 20 (b): the production step under ``train_remat`` "none",
+    "full" and "dots": the gradients of one loss within
+    ``REMAT_GRAD_TOL``·max|g| of "none"'s per tensor, then ms per step and
+    peak memory of each mode."""
+    model = build_model(dev)
+    run, statics, sup = train_statics(model)
+    batch = train_batch(dev)
+    taps = torch.from_numpy(model.update_annealing(0)).to(dev)
+    near, far = model.near, model.far
+    n_points = (N_RAYS * (statics.n_coarse + N_FINE_ACTIVE)) // 10
+    draws = train.draw_step(statics, sup, N_RAYS, model.generator, dev)
+    params = list(model.modules.parameters())
+    grads, losses = {}, {}
+    for mode in train.REMAT_MODES:
+        loss_fn = train.remat_wrap(train.make_loss_fn(
+            model.modules, statics, sup, run.vf_loss_weights,
+            run.vf_loss_config), mode)
+        total, _, _ = loss_fn(batch, draws, 0, taps, near, far,
+                              torch.zeros(3, device=dev), N_FINE_ACTIVE,
+                              n_points)
+        grads[mode] = torch.autograd.grad(total, params, allow_unused=True)
+        losses[mode] = float(total.detach())
+    gaps = {}
+    for mode in ("full", "dots"):
+        gaps[mode] = max(
+            float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            for g, r in zip(grads[mode], grads["none"]) if r is not None)
+        check(gaps[mode] <= REMAT_GRAD_TOL and
+              losses[mode] == losses["none"],
+              f"train_remat {mode}: gradients {gaps[mode]} of max|g| from "
+              f"none's, loss {losses[mode]} vs {losses['none']}")
+    del grads
+    timing = {}
+    for mode in train.REMAT_MODES:
+        step = train.make_train_step(model.modules, model.optimizer, statics,
+                                     sup, run.vf_loss_weights,
+                                     run.vf_loss_config, remat=mode)
+        timing[mode] = step_timing(lambda: step(
+            train.zero_metric_sums(dev), batch, 0, taps, near, far,
+            torch.zeros(3, device=dev), n_fine_active=N_FINE_ACTIVE,
+            generator=model.generator))
+    del model
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_gap_vs_none=gaps, tol=REMAT_GRAD_TOL,
+                timing=timing)
+
+
+def write_lpips_npz(path, widths=(16, 32, 64, 64, 64), seed=0) -> None:
+    """An LPIPS weights npz with VGG16's 13-conv / 5-tap structure and
+    narrow channel counts, random weights."""
+    rng = np.random.RandomState(seed)
+    arrays, in_c, i = {}, 3, 0
+    for width, n_convs in zip(widths, (2, 2, 3, 3, 3)):
+        for _ in range(n_convs):
+            arrays[f"conv{i}_w"] = rng.randn(width, in_c, 3, 3).astype(
+                np.float32) * 0.3
+            arrays[f"conv{i}_b"] = rng.randn(width).astype(np.float32) * 0.1
+            in_c, i = width, i + 1
+    for j, width in enumerate(widths):
+        arrays[f"lin{j}"] = np.abs(rng.randn(width)).astype(np.float32)
+    np.savez(path, **arrays)
+
+
+def lpips_phase(dev) -> dict:
+    """Phase 20 (c): LPIPS of two 64 x 64 images on the card against the
+    CPU, from a generated weights npz."""
+    from vf_nerf_torch.utils.metrics import get_lpips
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    path = RUN_DIR / "lpips_tiny.npz"
+    write_lpips_npz(path)
+    rng = np.random.RandomState(20)
+    a, b = (rng.rand(64, 64, 3).astype(np.float32) for _ in range(2))
+    card = get_lpips(a, b, weights_path=str(path), device=dev)
+    cpu = get_lpips(a, b, weights_path=str(path), device="cpu")
+    same = get_lpips(a, a, weights_path=str(path), device=dev)
+    check(abs(card - cpu) <= LPIPS_TOL and abs(same) <= 1e-6,
+          f"LPIPS on the card {card} vs the CPU {cpu}; d(a, a) = {same}")
+    return dict(card=card, cpu=cpu, gap=abs(card - cpu), tol=LPIPS_TOL,
+                same_image=same)
+
+
+def rank_launches_phase(dev) -> dict:
+    """Each data-parallel rank's launches at 512 of the step's 1024 rays
+    (phase 18's two ranks time-slice the card, so they are timed here one
+    at a time): the coarse VF (51,200 points, no save), the fine VF and the
+    colour net (102,400, save mode), the shell or ball VF (10,240, save
+    mode), each against its plain version with the cuBLAS chain and the
+    3xTF32 bound; the march forward at (512, 100) weights only and (512,
+    200), and its backward at (512, 200)."""
+    model = build_model(dev)
+    _, statics, sup = train_statics(model)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    vf_w, rn_w = model.modules.folded_weights()
+    skip = model.modules.vf.skip_at
+    half = N_RAYS // 2
+    n_coarse = half * statics.n_coarse
+    n_all = half * (statics.n_coarse + statics.n_fine)
+    n_shell = sup.n_points // 2
+    mlp = [forward_case("rank_coarse_vf", vf_w,
+                        mlp_inputs(model, vf_w, n_coarse, "tanh", gen), skip,
+                        "tanh", count_kernels=False)]
+    for name, w, n, sk, act in (("rank_fine_vf", vf_w, n_all, skip, "tanh"),
+                                ("rank_colour", rn_w, n_all, None,
+                                 "sigmoid"),
+                                ("rank_shell_vf", vf_w, n_shell, skip,
+                                 "tanh")):
+        mlp.append(mlp_case(name, w, mlp_inputs(model, w, n, act, gen), sk,
+                            act, gen))
+    march = [march_forward_row(half, statics.n_coarse, True, dev),
+             march_case(statics.n_coarse + statics.n_fine, dev, gen,
+                        n_rays=half)]
+    del model
+    torch.cuda.empty_cache()
+    return dict(mlp=mlp, march=march)
+
+
+def phase_options(dev) -> dict:
+    """Phase 20: compute_dtype, train_remat, LPIPS, and the data-parallel
+    rank's launches timed apart."""
+    progress("options: the data-parallel rank's launches")
+    ranks = rank_launches_phase(dev)
+    emit(dict(phase="rank_launches", **ranks))
+    dtype_rows = bf16_phase(dev)
+    progress("options: train_remat")
+    remat = remat_phase(dev)
+    emit(dict(phase="train_remat", **remat))
+    lpips = lpips_phase(dev)
+    emit(dict(phase="lpips", **lpips))
+    return dict(compute_dtype=dtype_rows, train_remat=remat, lpips=lpips,
+                rank_launches=ranks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3709,6 +4177,9 @@ def main() -> int:
         joint_launches = phase_joint()
         modes = phase_train_modes(pkl, dev)
         parallel = phase_parallel(dev)
+        progress("reuse_coarse")
+        reuse = phase_reuse_coarse(dev)
+        options = phase_options(dev)
     finally:
         # The checkpoints, the VF init, the depth maps and the meshes.
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -3718,7 +4189,8 @@ def main() -> int:
              "loaders": loader_launches, "protocol": protocol_launches,
              "joint": joint_launches,
              "train_modes": modes["launches"],
-             "parallel": parallel["two_ranks"]["launches"]}
+             "parallel": parallel["two_ranks"]["launches"],
+             "reuse_coarse": reuse["launches"]}
 
     def launch_counts(name):
         """``launches``: this slice's main path, ``VectorFieldNerfRunner.
@@ -3758,7 +4230,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(result, render_ms=render_ms, train_step_ms=step_ms,
              seconds=seconds, nvidia_smi=smi, parallel=parallel,
-             failures=failures), indent=1))
+             reuse_coarse=reuse, options=options, failures=failures),
+        indent=1))
     if failures:
         print(f"chip_smoke: {len(failures)} checks failed: {failures}",
               file=sys.stderr)
@@ -3828,6 +4301,36 @@ def parallel_only() -> int:
     return 1 if failures else 0
 
 
+def options_only() -> int:
+    """``--options``: the kernels' build and phases 19 and 20 alone; the
+    result in ``chiprun_out/options.json``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    load_library()
+    try:
+        reuse = phase_reuse_coarse(dev)
+        options = phase_options(dev)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "options.json").write_text(json.dumps(
+        dict(reuse_coarse=reuse, options=options, nvidia_smi=smi,
+             seconds=time.perf_counter() - T_START, failures=failures),
+        indent=1))
+    print(f"chip_smoke: {len(failures)} checks failed: {failures}",
+          file=sys.stderr)
+    return 1 if failures else 0
+
+
 def protocol_only() -> int:
     """``--protocol``: the kernels' build and phase 17 alone; the result in
     ``chiprun_out/protocol.json``."""
@@ -3861,5 +4364,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--joint-scan"]:
         sys.exit(joint_scan(sys.argv[2:]))
     only = {"--train-modes": train_modes_only, "--protocol": protocol_only,
-            "--parallel": parallel_only}
+            "--parallel": parallel_only, "--options": options_only}
     sys.exit(only.get(sys.argv[1] if sys.argv[1:] else "", main)())

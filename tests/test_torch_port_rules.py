@@ -1,11 +1,12 @@
 """The port's rules: it imports neither ``jax`` nor ``vf_nerf_tpu`` (the
-loaders, the JPEG codec, the joint stage and the port's tools
+loaders, the JPEG codec, the joint stage, the plots, helpers and library
+leftovers, and the port's tools
 ``tools/torch_*.py`` included, which import no JAX-side tool either) and
 loads no library
 from the root ``csrc/``, its entry points (the joint stage's too) refuse to
 run without CUDA unless asked for the CPU, a CUDA tensor never reaches a
 kernel's plain version, a failed host build raises instead of falling back
-to numpy, and the parts outside this slice raise ``NotImplementedError``.
+to numpy, and the paths the JAX package refuses raise.
 
 The import check runs in a subprocess, because this test process has
 imported jax already (``tests/conftest.py``).
@@ -43,6 +44,17 @@ import vf_nerf_torch.evaluation.mc.pipeline
 import vf_nerf_torch.ops.projector
 import vf_nerf_torch.train.joint_exp_runner
 import vf_nerf_torch.utils.geometry
+import vf_nerf_torch.datasets.helpers.colmap
+import vf_nerf_torch.datasets.helpers.llff
+import vf_nerf_torch.datasets.helpers.poses_utils
+import vf_nerf_torch.evaluation.plots
+import vf_nerf_torch.models.output
+import vf_nerf_torch.ops.ndc
+import vf_nerf_torch.utils.metrics
+import vf_nerf_torch.utils.profiling
+import vf_nerf_torch.utils.schedules
+# The plots import matplotlib only when they draw (the card lacks it).
+assert "matplotlib" not in sys.modules
 sys.path.insert(0, "tools")
 import torch_office_attribution, torch_office_cohort, torch_office_protocol
 import torch_scannet_protocol
@@ -192,10 +204,10 @@ def test_train_and_eval_entry_points_default_to_cuda(entry, tmp_path):
 @pytest.mark.parametrize("change", [
     dict(reuse_coarse=True), "n_fine_active", "dropout"])
 def test_unported_paths_raise(change):
-    """Each unported option raises: ``reuse_coarse``; static fine growth
-    with train-mode BatchNorm (which the JAX package refuses too); dropout
-    in train mode (the JAX renderer passes no dropout rng, so the JAX
-    package cannot train with it either)."""
+    """Each path the JAX package refuses raises: ``reuse_coarse`` with
+    static fine growth (JAX asserts it off there); static fine growth with
+    train-mode BatchNorm; dropout in train mode (the JAX renderer passes no
+    dropout rng, so the JAX package cannot train with it)."""
     cfg = parse_config(scene="s", config_path=CONF).vf_nerf_config
     cfg.vf_net_config.dimensions = [48, 48]
     cfg.vf_net_config.skip_connection_in = [1]
@@ -213,6 +225,7 @@ def test_unported_paths_raise(change):
         statics = dataclasses.replace(statics, train=True)
     else:
         statics = dataclasses.replace(statics, **change)
+        kw["n_fine_active"] = 2
     eye = torch.eye(4).expand(2, 4, 4)
     with pytest.raises(NotImplementedError):
         render_rays(mods, torch.zeros(2, 2), eye, eye, 0.0, 1.0,
@@ -221,11 +234,13 @@ def test_unported_paths_raise(change):
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("device_config", "compute_dtype", "bfloat16")])
+    ("device_config", "compute_dtype", "bogus")])
 def test_unported_config_options_raise(section, field, value):
+    """A compute dtype the port does not take raises (bfloat16 and float16
+    are ported)."""
     cfg = parse_config(scene="s", config_path=CONF).vf_nerf_config
     setattr(getattr(cfg, section), field, value)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="compute_dtype"):
         VFNerfModules(cfg)
 
 

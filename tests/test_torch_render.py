@@ -95,6 +95,13 @@ def jax_draws(key, n_rays, statics):
 def jax_coarse_argmax(jmods, variables, uv, pose, intr, near, far, window,
                       key, statics):
     """The coarse-weight argmax of JAX ``render_rays`` (its coarse pass)."""
+    return np.asarray(jax_coarse_argmax_array(
+        jmods, variables, uv, pose, intr, near, far, window, key, statics))
+
+
+def jax_coarse_argmax_array(jmods, variables, uv, pose, intr, near, far,
+                            window, key, statics):
+    """``jax_coarse_argmax`` as a JAX array (traceable by ``jax.jit``)."""
     k_coarse, _ = jax.random.split(key)
     n_rays = uv.shape[0]
     directions, ray_dirs, cam_loc = \
@@ -111,7 +118,7 @@ def jax_coarse_argmax(jmods, variables, uv, pose, intr, near, far, window,
                                   statics, fine=False)
     w = jcompositing.volsdf_volume_rendering(z, sigma,
                                              statics.normalize_rendering)
-    return np.asarray(jnp.argmax(w, axis=-1))
+    return jnp.argmax(w, axis=-1)
 
 
 def compare_render(jcfg, gain, n_rays, perturb, pallas, seed=0,

@@ -88,9 +88,13 @@ class RaySamplerConfig:
 
 @dataclass
 class DeviceConfig:
-    """Device section of a conf. The keys are those of the JAX package's
-    ``DeviceConfig`` so every conf parses; the eval render of this package
-    reads only ``compute_dtype`` (float32 is the one it supports)."""
+    """Device section of a conf, with the JAX package's keys so every conf
+    parses. The port reads ``platform`` ("cpu" picks the CPU, as
+    ``--gpu cpu`` does), ``num_devices`` (data parallel),
+    ``static_fine_growth``, ``compute_dtype`` ("float32", "bfloat16" or
+    "float16": ``models/renderer.py::COMPUTE_DTYPES``) and ``train_remat``
+    ("none", "full" or "dots"); ``steps_per_dispatch`` belongs to the JAX
+    package's TPU dispatch."""
 
     platform: str = ""
     num_devices: int = 0

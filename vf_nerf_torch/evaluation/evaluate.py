@@ -1,17 +1,18 @@
-"""Evaluation entry point (port of
-``vf_nerf_tpu/evaluation/evaluate.py:27-58, 107-112, 126-138``; reference
-``evaluation/evaluate.py:14-159``).
+"""Evaluation entry point (port of ``vf_nerf_tpu/evaluation/evaluate.py``;
+reference ``evaluation/evaluate.py:14-159``).
 
 Eval forces ``perturb=False`` and ``dir_to_normal_th=-0.2`` (reference
 ``:30-32``), grows the fine-sample count again from the checkpoint's epoch
 on top of the restored count (``:37-41``), and writes under
-``<eval_folder>/<expname>/<timestamp>_<checkpoint>/``. Ported:
-``render-images``, ``metrics``, ``marching-cubes-mesh`` and
+``<eval_folder>/<expname>/<timestamp>_<checkpoint>/``. Methods (``METHODS``,
+the JAX package's): ``marching-cubes-mesh`` and
 ``quadrant-marching-cubes-mesh`` (each in its plain and two smoothed
-variants), ``tsdf-mesh`` and ``3d-metrics``. The plot methods, and so
-``all``, raise ``NotImplementedError``: they need ``matplotlib``, which the
-card's machine lacks (``ROADMAP.md`` A.7). On CUDA unless the config asks
-for the CPU (``--gpu cpu``) or ``device`` says so. With more than one
+variants), ``plot-2d-slices``, ``plot-overall-scene`` and ``plot-3d-slices``
+(each plain and smoothed), ``render-images``, ``metrics``, ``tsdf-mesh``,
+``3d-metrics``, and ``all``, which runs them in that order. The plots need
+``matplotlib``, which the card's machine lacks: there they raise its
+``ImportError`` (and so does ``all``, after the meshes). On CUDA unless
+the config asks for the CPU (``--gpu cpu``) or ``device`` says so. With more than one
 local card the eval render and the quadrant MC's octants spread over all
 of them (``VectorFieldNerf.enable_mesh_eval``). Usage::
 
@@ -33,13 +34,13 @@ from vf_nerf_torch.config.parser import (config_device, eval_argparser,
                                          parse_config)
 from vf_nerf_torch.config.schema import VFRunnerConfig
 from vf_nerf_torch.datasets import dataset_dict
-from vf_nerf_torch.evaluation import methods
+from vf_nerf_torch.evaluation import methods, plots
 from vf_nerf_torch.models.nerf import VectorFieldNerf
 from vf_nerf_torch.utils import io as io_utils
 
-PORTED = ("marching-cubes-mesh", "quadrant-marching-cubes-mesh",
-          "render-images", "metrics", "tsdf-mesh", "3d-metrics")
-NOT_PORTED = ("plot-2d-slices", "plot-overall-scene", "plot-3d-slices", "all")
+METHODS = ("marching-cubes-mesh", "quadrant-marching-cubes-mesh",
+           "plot-2d-slices", "plot-overall-scene", "plot-3d-slices",
+           "render-images", "metrics", "tsdf-mesh", "3d-metrics", "all")
 # Timestamps of external baselines' meshes, scored by metrics_3d_no_vf
 # (JAX ``evaluate.py:126-138``).
 BASELINES = ("monosdf", "neuralangelo", "neuris", "manhattan_sdf", "mono_sdf")
@@ -84,25 +85,30 @@ def evaluate(config: VFRunnerConfig, method: str, resolution: int,
     """Run ``method`` on the run's ``config.checkpoint``; returns the eval
     folder. ``resolution``, ``distance_thresh`` and ``num_quadrants`` belong
     to the mesh methods."""
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"eval method {method!r} needs the plots, which need matplotlib "
-            f"and are not ported yet (ROADMAP.md A.7); ported: "
-            f"{', '.join(PORTED)}")
-    if method not in PORTED:
-        raise ValueError(f"unknown eval method {method!r}")
+    if method not in METHODS:
+        raise ValueError(f"unknown eval method {method!r}; one of "
+                         f"{', '.join(METHODS)}")
     model, epoch = eval_model(config, device)
     eval_folder = os.path.join(eval_root_folder, config.expname,
                                f"{config.timestamp}_{config.checkpoint}")
     io_utils.mkdir_ifnotexists(eval_folder)
     print("Evaluating the model.")
     dcfg = config.dataset_config
-    if method in ("marching-cubes-mesh", "quadrant-marching-cubes-mesh"):
-        dataset = dataset_dict[dcfg.dataset_name](dcfg)
-        quadrant = method == "quadrant-marching-cubes-mesh"
+
+    def runs(name):
+        return method in (name, "all")
+
+    def dataset():
+        return dataset_dict[dcfg.dataset_name](dcfg)
+
+    for quadrant in (False, True):
+        if not runs("quadrant-marching-cubes-mesh" if quadrant
+                    else "marching-cubes-mesh"):
+            continue
+        scene = dataset()
         for suffix, smooth_all, smooth_after in MC_VARIANTS:
-            kw = dict(scale=dataset.scale, max_batch=100000,
-                      centroid=dataset.get_centroid(),
+            kw = dict(scale=scene.scale, max_batch=100000,
+                      centroid=scene.get_centroid(),
                       smooth_after=smooth_after, smooth_all=smooth_all)
             if quadrant:
                 methods.quadrant_marching_cubes(
@@ -114,17 +120,36 @@ def evaluate(config: VFRunnerConfig, method: str, resolution: int,
                     model, resolution, os.path.join(eval_folder,
                                                     "mesh" + suffix),
                     config.checkpoint, **kw)
-    elif method == "render-images":
+    if runs("plot-2d-slices"):
+        scene = dataset()
+        for smooth in (False, True):
+            plots.plot_2d_slices(model, eval_folder,
+                                 scale=scene.scale / 1.1 * 1.02,
+                                 centroid=scene.get_centroid(),
+                                 smooth=smooth)
+    if runs("plot-overall-scene"):
+        scene = dataset()
+        for smooth in (False, True):
+            plots.plot_overall_scene(model, eval_folder,
+                                     scale=scene.scale / 1.1,
+                                     centroid=scene.get_centroid(),
+                                     smooth=smooth)
+    if runs("plot-3d-slices"):
+        for smooth in (False, True):
+            plots.plot_3d_slices(model, eval_folder, smooth=smooth)
+    if runs("render-images"):
         methods.render_images(model, eval_folder, dcfg, epoch, chunk_size)
-    elif method == "metrics":
+    if runs("metrics"):
         methods.metrics(model, eval_folder, dcfg, epoch, chunk_size)
-    elif method == "tsdf-mesh":
+    if runs("tsdf-mesh"):
         methods.tsdf_mesh(eval_folder, dcfg)
-    elif config.timestamp in BASELINES:
-        methods.metrics_3d_no_vf(eval_folder, config.checkpoint, dcfg,
-                                 distance_thresh=distance_thresh)
-    else:
-        methods.metrics_3d(eval_folder, dcfg, distance_thresh=distance_thresh)
+    if runs("3d-metrics"):
+        if config.timestamp in BASELINES:
+            methods.metrics_3d_no_vf(eval_folder, config.checkpoint, dcfg,
+                                     distance_thresh=distance_thresh)
+        else:
+            methods.metrics_3d(eval_folder, dcfg,
+                               distance_thresh=distance_thresh)
     return eval_folder
 
 

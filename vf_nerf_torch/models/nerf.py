@@ -14,7 +14,10 @@ reference's ``.pth`` layout (``vf_net``, ``rendering_net``, ``density``,
 ``load_reference_pth`` reads a reference checkpoint and ``load_vf_init`` the
 VF-init ``.pkl`` that either package writes. ``get_colors`` and
 ``get_weights_and_color`` are the reference's support surface for the joint
-stage.
+stage; ``render_output`` wraps ``render`` in ``NerfOutput``.
+``render(..., reuse_coarse=True)`` reuses the coarse VF outputs in the fine
+pass (``RenderStatics.reuse_coarse``, ``models/renderer.py``), an eval
+option the JAX facade does not expose.
 
 BatchNorm's mode is the modules' ``training`` flag: ``eval()`` runs it on
 the running statistics, ``train()`` on each pass's batch statistics —
@@ -44,6 +47,7 @@ spread of ``DeviceMeshExtractor.extract_many``).
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from vf_nerf_torch.config.schema import SchedulerConfig, VFNerfConfig
+from vf_nerf_torch.models.output import NerfOutput
 from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
                                            draw_uniforms, param_groups,
                                            render_rays,
@@ -271,16 +276,18 @@ class VectorFieldNerf:
     def render_statics(self, train: Optional[bool] = None,
                        white_background: bool = False,
                        compute_dir_derivatives: bool = False,
-                       n_fine: Optional[int] = None) -> RenderStatics:
+                       n_fine: Optional[int] = None,
+                       reuse_coarse: bool = False) -> RenderStatics:
         """The statics at the fine count (``n_fine`` or the current one) and
         BatchNorm mode (``train`` or the modules', as JAX
-        ``render_statics``)."""
-        return RenderStatics.from_config(
+        ``render_statics``), with ``reuse_coarse`` set."""
+        statics = RenderStatics.from_config(
             self.config,
             n_fine=self.fine_n_samples if n_fine is None else n_fine,
             train=self.modules.training if train is None else train,
             white_background=white_background,
             compute_dir_derivatives=compute_dir_derivatives)
+        return dataclasses.replace(statics, reuse_coarse=reuse_coarse)
 
     def _nets(self, statics: RenderStatics):
         """(VF net, colour net) as callables of this BatchNorm mode: the
@@ -305,16 +312,26 @@ class VectorFieldNerf:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def render(self, pose, pixels, intrinsics, epoch: int,
-               white: bool = False) -> Dict[str, torch.Tensor]:
+               white: bool = False, reuse_coarse: bool = False
+               ) -> Dict[str, torch.Tensor]:
         """Anneal, then render the rays of ``pixels`` (R, 2) with per-ray
         ``pose`` (R, 4, 4) or (R, 7) and ``intrinsics`` (R, 4, 4); returns
-        the dict of ``render_rays``."""
+        the dict of ``render_rays``. ``reuse_coarse``: see the module
+        docstring."""
         self.update_annealing(epoch)
         self.sync_replicas()
         return self._render_chunk(
             self.to_device(pixels), self.to_device(pose),
             self.to_device(intrinsics), self.to_device(self.window_weights),
-            self.render_statics(white_background=white))
+            self.render_statics(white_background=white,
+                                reuse_coarse=reuse_coarse))
+
+    def render_output(self, pose, pixels, intrinsics, epoch: int,
+                      white: bool = False) -> NerfOutput:
+        """``render`` in the reference's ``NerfOutput`` contract (JAX
+        ``render_output``, reference ``models/nerf/output.py:8-70``)."""
+        return NerfOutput.from_render_dict(
+            self.render(pose, pixels, intrinsics, epoch, white))
 
     def render_image(self, pixels, pose, intrinsics, epoch: int,
                      white: bool = False, split_size: int = 1024
@@ -420,6 +437,10 @@ class VectorFieldNerf:
         else:
             modules = self.modules
             pts = self.to_device(points).reshape(-1, 3)
+        if not modules.supports_folding(self.render_statics(train=False)):
+            # Weight norm under a compute dtype: unfolded, as JAX runs it.
+            return torch.cat([modules.vf_apply(part, False)[:, :3]
+                              for part in torch.split(pts, chunk)])
         vf_w = modules.vf.folded_weights()
         return torch.cat([modules.vf_apply_folded(vf_w, part)[:, :3]
                           for part in torch.split(pts, chunk)])

@@ -43,6 +43,16 @@ and ``directional_derivatives`` are the JAX package's. Under train-mode
 BatchNorm a broadcast tangent also moves the batch statistics, so the JVP
 carries their terms: the JAX package's Jacobian, not the reference's
 per-row reverse-mode rows (``ROADMAP.md`` §C).
+
+``compute_dtype`` (bfloat16 or float16; None is float32) is flax's mixed
+precision, as the JAX nets take it: each Linear casts its input, weight
+and bias to that dtype and returns it; BatchNorm normalizes in float32
+(flax's ``force_float32_reductions``: the statistics and the running
+update in float32) and returns the compute dtype; weight norm's layers
+take no dtype in the JAX package (its ``WeightNormDense``), so they stay
+in float32; the skip concatenation promotes to float32, as
+``jnp.concatenate`` does; and each net casts its output back to its
+input's dtype. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -128,7 +138,9 @@ class _MLP(nn.Module):
 
     def _build(self, widths: List[Tuple[int, int]], batch_norm: bool,
                weight_norm: bool, xavier: bool, bias_init: float,
-               generator: Optional[torch.Generator]) -> None:
+               generator: Optional[torch.Generator],
+               compute_dtype: Optional[torch.dtype]) -> None:
+        self.compute_dtype = compute_dtype
         layers = []
         for i, (fan_in, fan_out) in enumerate(widths):
             if weight_norm:      # and no BatchNorm, as the JAX nets build it
@@ -148,16 +160,25 @@ class _MLP(nn.Module):
         """Layer ``i`` (Linear, then BatchNorm). In train mode the batch's
         (mean, biased variance) go into ``stats`` when it is a dict."""
         dense, bn = dense_and_norm(self.layers[i])
-        x = F.linear(x, dense.weight, dense.bias)
+        dtype = self.compute_dtype
+        if dtype is None or isinstance(dense, WeightNormLinear):
+            x = F.linear(x, dense.weight, dense.bias)
+        else:
+            x = x.to(dtype) @ dense.weight.to(dtype).t() + \
+                dense.bias.to(dtype)
         if bn is None:
             return x
+        out_dtype = x.dtype
+        x = x.to(torch.promote_types(out_dtype, torch.float32))
         if not train:
             return F.batch_norm(x, bn.running_mean, bn.running_var,
-                                bn.weight, bn.bias, False, 0.0, bn.eps)
+                                bn.weight, bn.bias, False, 0.0,
+                                bn.eps).to(out_dtype)
         var, mean = batch_var_mean(x)
         if stats is not None:
             stats[i] = (mean.detach(), var.detach())
-        return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+        return ((x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) +
+                bn.bias).to(out_dtype)
 
     def _updates(self, stats) -> Updates:
         """The new running statistics from each layer's batch (mean,
@@ -206,7 +227,8 @@ class VectorFieldMLP(_MLP):
     """The neural vector field v: R^3 → S^2 (+ feature vector)."""
 
     def __init__(self, config: VFNetConfig,
-                 generator: Optional[torch.Generator] = None) -> None:
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.config = config
         in_dim = embedding_dim(config.embedder_multires, config.input_dims)
@@ -222,7 +244,8 @@ class VectorFieldMLP(_MLP):
             widths.append((width, out_dim))
             width = out_dim
         self._build(widths, config.batch_norm, config.weight_norm,
-                    config.xavier_init, config.bias_init, generator)
+                    config.xavier_init, config.bias_init, generator,
+                    compute_dtype)
 
     @property
     def skip_at(self) -> Optional[int]:
@@ -251,7 +274,7 @@ class VectorFieldMLP(_MLP):
                 x = torch.cat([x, embedded], dim=1) / 2.0 ** 0.5
             x = self._layer(i, x, train, stats)
             x = torch.relu(x) if i < n - 1 else torch.tanh(x)
-        return x, self._updates(stats)
+        return x.to(points.dtype), self._updates(stats)
 
 
 def vf_jacobian(apply_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -316,13 +339,14 @@ class RenderingMLP(_MLP):
     """IDR-style colour network."""
 
     def __init__(self, config: RenderingNetConfig,
-                 generator: Optional[torch.Generator] = None) -> None:
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.config = config
         dims = [self.input_dim(config)] + list(config.dimensions) + \
             [config.output_dims]
         self._build(list(zip(dims[:-1], dims[1:])), config.batch_norm,
-                    config.weight_norm, False, 0.0, generator)
+                    config.weight_norm, False, 0.0, generator, compute_dtype)
 
     @staticmethod
     def input_dim(config: RenderingNetConfig) -> int:
@@ -366,4 +390,4 @@ class RenderingMLP(_MLP):
             x = self._layer(i, x, train, stats)
             if i < n - 1:
                 x = torch.relu(x)
-        return torch.sigmoid(x), self._updates(stats)
+        return torch.sigmoid(x).to(points.dtype), self._updates(stats)

@@ -41,8 +41,22 @@ Reference quirks kept: the density uses a uniform ``1/W`` window unless
 ``anneal_fine`` on the fine pass; back-facing samples are suppressed; the
 last sample's σ is 0; the effective density cutoff is −0.5, not the conf's.
 
-Not ported, raising ``NotImplementedError``: ``reuse_coarse``, bf16
-compute.
+``reuse_coarse`` (eval; JAX ``renderer.py:400-460``): where the JAX
+package folds (``VFNerfModules.jax_folds``: no train-mode BatchNorm, no
+directional derivative of either kind, no weight norm, ``fast_eval``), the
+coarse VF launch keeps all its outputs, the fine pass evaluates only the
+extra depths of ``range_fine_extra_z``, and the two sets of rows are put
+in the order of the stably sorted depths: 3 MLP launches (coarse VF over
+R·n_coarse points, extra VF over R·n_fine, colour over R·(n_coarse +
+n_fine)) and 2 marches. Elsewhere it is ignored, as the JAX package
+ignores it; with static fine growth it raises, as the JAX package asserts.
+
+``device_config.compute_dtype`` (``COMPUTE_DTYPES``) reaches the unfolded
+nets only (``models/networks.py``), as in the JAX package, whose folded
+path calls its MLP on float32 weights whatever the dtype: the folded
+render and step run the same float32 kernels. Under a dtype other than
+float32 the render folds on the JAX package's own condition, so weight
+norm and the numerical Jacobian run unfolded, as there.
 """
 
 from __future__ import annotations
@@ -64,6 +78,12 @@ from vf_nerf_torch.ops.embedding import positional_encoding
 from vf_nerf_torch.ops.fused_mlp import Weights, fused_mlp
 from vf_nerf_torch.ops.ray_march import fused_ray_march, sample_density
 from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
+
+
+# ``device_config.compute_dtype`` names the port takes: those of the JAX
+# package that torch has ("" and "float32" compute in float32).
+COMPUTE_DTYPES = {"": None, "float32": None, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +108,8 @@ class RenderStatics:
     train: bool
     reuse_coarse: bool = False
     numerical_jacobian: bool = False
+    # Off: eval-mode BatchNorm runs unfolded as well (JAX ``fast_eval``).
+    fast_eval: bool = True
 
     @staticmethod
     def from_config(cfg: VFNerfConfig, n_fine: int, train: bool,
@@ -125,25 +147,45 @@ class VFNerfModules(nn.Module):
     def __init__(self, cfg: VFNerfConfig,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
-        if cfg.device_config.compute_dtype not in ("", "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={cfg.device_config.compute_dtype!r} is not "
-                "ported yet; the port computes in float32")
+        name = cfg.device_config.compute_dtype
+        if name not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {name!r} is not one of "
+                             f"{sorted(COMPUTE_DTYPES)}")
         self.cfg = cfg
-        self.vf = VectorFieldMLP(cfg.vf_net_config, generator=generator)
+        self.compute_dtype = COMPUTE_DTYPES[name]
+        self.vf = VectorFieldMLP(cfg.vf_net_config, generator=generator,
+                                 compute_dtype=self.compute_dtype)
         self.render = RenderingMLP(cfg.rendering_net_config,
-                                   generator=generator)
+                                   generator=generator,
+                                   compute_dtype=self.compute_dtype)
         self.density = LaplaceDensity(cfg.density_config.params_init)
 
+    def jax_folds(self, statics: RenderStatics) -> bool:
+        """The JAX package's fold condition (``renderer.py:367-370``):
+        ``fast_eval``, BatchNorm on its running statistics, no directional
+        derivative, no weight norm."""
+        weight_norm = self.cfg.vf_net_config.weight_norm or \
+            self.cfg.rendering_net_config.weight_norm
+        return statics.fast_eval and not statics.train and \
+            not statics.compute_dir_derivatives and not weight_norm
+
     def supports_folding(self, statics: RenderStatics) -> bool:
-        """Whether the render runs the fused MLP over folded weights: its
-        BatchNorm is on the running statistics (or absent) and no
-        forward-mode Jacobian is asked for (the JAX condition,
-        ``renderer.py:367-370``, less weight norm, which folds exactly
-        here: the JAX package computes ``x @ (v·g/‖v‖) + b``)."""
+        """Whether the render runs the fused MLP over folded weights. In
+        float32: ``fast_eval``, BatchNorm on its running statistics (or
+        absent) and no forward-mode Jacobian, a wider condition than the
+        JAX package's: weight norm folds exactly here (the JAX package
+        computes ``x @ (v·g/‖v‖) + b``), and so do the numerical
+        Jacobian's passes. Under another compute dtype, ``jax_folds``."""
+        if self.compute_dtype is not None:
+            return self.jax_folds(statics)
         analytic = statics.compute_dir_derivatives and \
             not statics.numerical_jacobian
-        return not statics.train and not analytic
+        return statics.fast_eval and not statics.train and not analytic
+
+    def reuses_coarse(self, statics: RenderStatics) -> bool:
+        """Whether the render reuses the coarse VF outputs: asked for, and
+        where the JAX package folds."""
+        return statics.reuse_coarse and self.jax_folds(statics)
 
     def folded_weights(self, detach: bool = True
                        ) -> Tuple[Weights, Weights]:
@@ -191,11 +233,6 @@ def param_groups(modules: VFNerfModules) -> Dict[str, List[nn.Parameter]]:
     return {"vf": list(modules.vf.parameters()),
             "render": list(modules.render.parameters()),
             "density": list(modules.density.parameters())}
-
-
-def _check_statics(statics: RenderStatics) -> None:
-    if statics.reuse_coarse:
-        raise NotImplementedError("reuse_coarse is not ported yet")
 
 
 def draw_uniforms(statics: RenderStatics, n_rays: int,
@@ -282,13 +319,16 @@ def render_rays(modules: VFNerfModules,
         passes' new running statistics); with ``compute_dir_derivatives``
         ``dir_derivative_norms`` (R·S·2,).
     """
-    _check_statics(statics)
     if n_fine_active is not None:
         if statics.train:
             raise NotImplementedError(
                 "static fine growth with train-mode BatchNorm: the pad "
                 "points would enter the batch statistics (the JAX package "
                 "refuses it too)")
+        if modules.reuses_coarse(statics):
+            raise NotImplementedError(
+                "static fine growth with reuse_coarse (the JAX package "
+                "refuses it too): the reuse render takes a fixed fine count")
         n_fine_active = int(n_fine_active)
         if not 1 <= n_fine_active <= statics.n_fine:
             raise ValueError(f"n_fine_active must be in 1..{statics.n_fine} "
@@ -343,21 +383,32 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
                                      density_params, taps, n_valid)
 
     # ---- coarse pass: steers the fine sampler only, no gradients ----------
+    # (reused, its VF outputs are the fine pass's too, on the graph).
+    reuse = modules.reuses_coarse(statics)
     with torch.no_grad():
         z_coarse = samplers.uniform_z_vals(
             n_rays, statics.n_coarse, near, far, perturb=statics.perturb,
             t=t_coarse, device=device).contiguous()
         pts_coarse = samplers.points_from_z(cam_loc, directions, z_coarse)
-        normals_coarse = field(pts_coarse.reshape(-1, 3))[:, :3].reshape(
+    with torch.set_grad_enabled(reuse and torch.is_grad_enabled()):
+        vf_coarse = field(pts_coarse.reshape(-1, 3))
+    with torch.no_grad():
+        normals_coarse = vf_coarse[:, :3].reshape(
             n_rays, statics.n_coarse, 3).contiguous()
         _, _, weights_coarse = weigh(normals_coarse, z_coarse, None, uniform)
         argmax_coarse = torch.argmax(weights_coarse, dim=-1)
 
     # ---- fine pass ---------------------------------------------------------
-    if statics.n_fine > 0:
+    fine_range = modules.cfg.ray_sampler_config.fine_range
+    updates: Dict[str, Updates] = {}
+    if reuse:
+        z_vals, vf_out = _reuse_coarse(statics, vf_coarse, z_coarse,
+                                       weights_coarse, fine_range, near, far,
+                                       t_fine, u_extra, cam_loc, directions,
+                                       field)
+    elif statics.n_fine > 0:
         z_vals = samplers.range_fine_z_vals(
-            z_coarse, weights_coarse, statics.n_fine,
-            modules.cfg.ray_sampler_config.fine_range, near, far,
+            z_coarse, weights_coarse, statics.n_fine, fine_range, near, far,
             statics.perturb, t_fine, u_extra, n_active=n_fine_active)
     else:
         z_vals = z_coarse
@@ -368,11 +419,10 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
     feat_dim = modules.cfg.vf_net_config.feature_vector_dims
     dirs_flat = ray_dirs[:, None, :].expand(-1, n_samples, -1).reshape(-1, 3)
     # Train-mode BatchNorm keeps the fine passes' running statistics.
-    updates: Dict[str, Updates] = {}
-    if fold:
-        vf_out = modules.vf_apply_folded(vf_w, points_flat)
-    else:
+    if not fold:
         vf_out, updates["vf"] = modules.vf(points_flat, statics.train)
+    elif not reuse:
+        vf_out = modules.vf_apply_folded(vf_w, points_flat)
     normals_flat = vf_out[:, :3]
     feats_flat = vf_out[:, 3:3 + feat_dim]
     if fold:
@@ -411,3 +461,32 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
         out["dir_derivative_norms"] = torch.linalg.vector_norm(
             dd.reshape(-1, 3), dim=-1)
     return out
+
+
+def _reuse_coarse(statics, vf_coarse, z_coarse, weights_coarse, fine_range,
+                  near, far, t_fine, u_extra, cam_loc, directions, field):
+    """The reuse render's fine pass: (z_vals (R, S), the VF outputs (R·S,
+    C) in the order of ``z_vals``). Only the extra depths go through
+    ``field``; each ray's coarse and extra depths are sorted stably (a tie
+    keeps the coarse sample first, as ``jnp.argsort`` does), and each VF
+    row is copied once, to its sorted place."""
+    n_rays, n_coarse = z_coarse.shape
+    if statics.n_fine == 0:
+        return z_coarse, vf_coarse
+    z_extra = samplers.range_fine_extra_z(
+        z_coarse, weights_coarse, statics.n_fine, fine_range, near, far,
+        statics.perturb, t_fine, u_extra)
+    pts_extra = samplers.points_from_z(cam_loc, directions, z_extra)
+    vf_extra = field(pts_extra.reshape(-1, 3))
+    z_vals, order = torch.sort(torch.cat([z_coarse, z_extra], dim=-1),
+                               dim=-1, stable=True)
+    n_samples = z_vals.shape[1]
+    # Each unsorted sample's row among the sorted ones.
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n_samples, device=order.device).expand(
+            n_rays, n_samples))
+    rank += torch.arange(n_rays, device=order.device)[:, None] * n_samples
+    vf_out = vf_coarse.new_empty(n_rays * n_samples, vf_coarse.shape[1])
+    vf_out.index_copy_(0, rank[:, :n_coarse].reshape(-1), vf_coarse)
+    vf_out.index_copy_(0, rank[:, n_coarse:].reshape(-1), vf_extra)
+    return z_vals, vf_out

@@ -1,7 +1,8 @@
 """Window-weight annealing (port of ``vf_nerf_tpu/ops/annealing.py``;
 reference ``utils/weight_annealing.py:32-74``). Runs on the host once per
 epoch, so it is plain numpy; the result goes to the renderer as a (W,)
-tensor."""
+tensor. ``parameter_linear_annealing`` is the reference's scalar schedule
+(no shipped path calls it)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,15 @@ def annealed_window_weights(base_weights: np.ndarray, anneal_mode: str,
                                     anneal_end - anneal_start,
                                     epoch - anneal_start,
                                     soft=(anneal_mode == "soft"))
+
+
+def parameter_linear_annealing(start_value: float, end_value: float,
+                               n_epochs: int, epoch: int) -> float:
+    """A scalar's linear schedule from ``start_value`` at epoch 0 to
+    ``end_value`` at ``n_epochs`` (reference
+    ``parameter_annealing.py:33-57``)."""
+    if epoch <= 0:
+        return start_value
+    if epoch >= n_epochs:
+        return end_value
+    return start_value + (end_value - start_value) * epoch / n_epochs

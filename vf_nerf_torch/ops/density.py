@@ -5,6 +5,11 @@
 The three learned scalars are clamped before use: beta to ``beta_bounds``,
 scale to ``max(|scale|, scale_min)``, mean to ``mean_bounds``.
 ``laplace_density(x) = relu(cdf(x) - cdf(cutoff))``.
+
+The reference's alternate densities, which no shipped conf uses, are here
+as the JAX package has them: ``sdf_density`` (and its twin
+``laplace_density_sdf``), ``simple_density``, ``exponential_density`` and
+``sigmoid_density`` (``density_functions.py:51-319``).
 """
 
 from __future__ import annotations
@@ -71,3 +76,37 @@ def laplace_density(x: torch.Tensor, params: DensityParams,
     shifted = laplace_cdf(x, beta, scale, mean) - laplace_cdf(
         x.new_full((), cutoff), beta, scale, mean)
     return torch.clamp(shifted, min=0.0)
+
+
+def sdf_density(sdf: torch.Tensor, beta: torch.Tensor,
+                beta_min: float = 1e-4) -> torch.Tensor:
+    """VolSDF's Laplace density of an SDF; reference ``SdfDensity``
+    (``:51-77``)."""
+    b = torch.abs(beta) + beta_min
+    return (1.0 / b) * (0.5 + 0.5 * torch.sign(sdf) *
+                        torch.expm1(-torch.abs(sdf) / b))
+
+
+# Reference ``LaplaceDensitySdf`` (``:301-319``) is ``SdfDensity``'s math.
+laplace_density_sdf = sdf_density
+
+
+def simple_density(x: torch.Tensor) -> torch.Tensor:
+    """NeRF's relu density (without its noise); reference ``:80-108``."""
+    return torch.clamp(x, min=0.0)
+
+
+def exponential_density(x: torch.Tensor, beta: torch.Tensor,
+                        beta_min: float = 1e-4) -> torch.Tensor:
+    """Reference ``:207-243``."""
+    b = torch.abs(beta) + beta_min
+    return (1.0 / b) * (1.0 - torch.exp(-b * x))
+
+
+def sigmoid_density(x: torch.Tensor, beta: torch.Tensor,
+                    scale: torch.Tensor, beta_min: float = 1e-4,
+                    scale_min: float = 1.0) -> torch.Tensor:
+    """Reference ``:246-298``."""
+    b = torch.clamp(torch.abs(beta), min=beta_min)
+    s = torch.clamp(torch.abs(scale), min=scale_min)
+    return s / (1.0 + torch.exp(-b * (-x - 0.5)))

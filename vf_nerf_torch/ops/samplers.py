@@ -11,11 +11,13 @@ reference ``models/samplers/ray_sampler.py``).
   window's spacing uses the live count, the last live column is stratified
   as if the array ended there, and the pad columns sit at
   ``far + 2·fine_range + 1``, beyond any live depth, so they sort to the
-  ray's tail.
+  ray's tail;
+- ``sample_pdf`` / ``pdf_z_vals``: classic NeRF inverse-CDF fine depths
+  (``FineSampler``, ``:163-237``), which no shipped conf uses.
 
 JAX's threefry streams cannot be reproduced in torch, so every uniform draw
-is an argument: ``t`` (the stratify jitter) and ``u_extra`` (the random
-extras, drawn even with perturb off). Callers draw them from a
+is an argument: ``t`` (the stratify jitter), ``u_extra`` (the random
+extras, drawn even with perturb off) and ``sample_pdf``'s ``u``. Callers draw them from a
 ``torch.Generator``; parity tests pass JAX's draws.
 """
 
@@ -127,4 +129,50 @@ def range_fine_z_vals(coarse_z_vals: torch.Tensor,
                                  fine_range, near, far, perturb, t_fine,
                                  u_extra, n_active)
     return torch.sort(torch.cat([coarse_z_vals, z_extra], dim=-1),
+                      dim=-1).values
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               deterministic: bool = False,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF sampling of ``n_samples`` depths per ray from the
+    piecewise-constant pdf of ``weights`` over ``bins`` (reference
+    ``FineSampler.sample_pdf``, ``ray_sampler.py:163-214``): ``u`` (R,
+    n_samples) uniforms, or ``linspace(0, 1)`` when ``deterministic``. No
+    gradient flows out, as in the JAX package."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    if deterministic:
+        u = _linspace01(n_samples, cdf.dtype, cdf.device).expand(
+            cdf.shape[:-1] + (n_samples,))
+    elif u is None:
+        raise ValueError("sample_pdf needs its uniforms u unless "
+                         "deterministic")
+    u = u.to(cdf.dtype).contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    last = bins.shape[-1] - 1
+    bins_b = torch.gather(bins, -1, torch.clamp(below, max=last))
+    bins_a = torch.gather(bins, -1, torch.clamp(above, max=last))
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_b) / denom
+    return (bins_b + t * (bins_a - bins_b)).detach()
+
+
+def pdf_z_vals(coarse_z_vals: torch.Tensor, coarse_weights: torch.Tensor,
+               n_samples: int, deterministic: bool = False,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Classic NeRF fine depths (reference ``FineSampler.get_z_vals``,
+    ``ray_sampler.py:216-237``): ``sample_pdf`` over the coarse mid-points
+    with the inner coarse weights, merged with the coarse depths, sorted."""
+    mids = 0.5 * (coarse_z_vals[..., 1:] + coarse_z_vals[..., :-1])
+    z_new = sample_pdf(mids, coarse_weights[..., 1:-1], n_samples,
+                       deterministic, u)
+    return torch.sort(torch.cat([coarse_z_vals, z_new], dim=-1),
                       dim=-1).values

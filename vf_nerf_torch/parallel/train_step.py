@@ -37,6 +37,16 @@ backward every gradient is summed over the ranks in one flat all-reduce,
 then the clip and Adam run alike on every rank. The metric sums stay this
 rank's shares (the runner sums them over the ranks once per epoch).
 
+``train_remat`` (``device_config``; JAX ``_remat_wrap``) recomputes the
+loss closure's forward in the backward instead of keeping its saved
+tensors: ``"full"`` under ``torch.utils.checkpoint`` (non-reentrant),
+``"dots"`` under a selective-checkpoint policy that keeps the products'
+outputs (``mm``, ``addmm``) and recomputes everything else, the fused
+MLP's launch included, as JAX's ``dots_with_no_batch_dims_saveable`` keeps
+``dot_general``'s outputs and recomputes its ``pallas_call``. The draws are
+made before the closure, so a recompute sees the same ones; the gradients
+are the same computation run twice. Any other mode raises ``ValueError``.
+
 The JAX package's scan and span steps dispatch K of these steps at once on
 the TPU; on the card a step is a sequence of launches, and the runner loops
 them.
@@ -45,10 +55,13 @@ them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from vf_nerf_torch.config.schema import (VFLossConfig, VFLossWeights,
                                          VFNerfConfig)
@@ -257,10 +270,38 @@ def make_loss_fn(modules: VFNerfModules, statics: RenderStatics,
     return loss_fn
 
 
+REMAT_MODES = ("none", "full", "dots")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the outputs of the products without a batch dimension;
+    recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(loss_fn: Callable, remat: str) -> Callable:
+    """``loss_fn`` with its backward rematerialized (module docstring)."""
+    if remat == "none":
+        return loss_fn
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown train_remat mode: {remat!r} "
+                         "(expected 'none' | 'full' | 'dots')")
+    kw = {} if remat == "full" else dict(context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _dots_saveable))
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(loss_fn, *args, use_reentrant=False, **kw,
+                          **kwargs)
+    return wrapped
+
+
 def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
                     statics: RenderStatics, sup: SupervisionStatics,
                     loss_weights: VFLossWeights,
-                    loss_config: VFLossConfig) -> Callable:
+                    loss_config: VFLossConfig,
+                    remat: str = "none") -> Callable:
     """The step: ``step(metric_sums, batch, epoch, window_weights, near,
     far, centroid, n_fine_active=None, draws=None, generator=None)``
     updates the modules' parameters (and in train-mode BatchNorm their
@@ -275,8 +316,10 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
         None when ``statics.n_fine`` is the fine count itself.
     :param draws: the global step's draws (``draw_step``); None draws them
         from ``generator``.
+    :param remat: ``train_remat``: "none", "full" or "dots".
     """
-    loss_fn = make_loss_fn(modules, statics, sup, loss_weights, loss_config)
+    loss_fn = remat_wrap(make_loss_fn(modules, statics, sup, loss_weights,
+                                      loss_config), remat)
     groups = param_groups(modules)
 
     def step(metric_sums, batch, epoch, window_weights, near, far, centroid,

@@ -75,6 +75,7 @@ from vf_nerf_torch.parallel.train_step import (METRIC_KEYS,
 from vf_nerf_torch.utils import io as io_utils
 from vf_nerf_torch.utils.logging import MetricsLogger
 from vf_nerf_torch.utils.prefetch import Prefetcher
+from vf_nerf_torch.utils.profiling import maybe_enable_nan_debugging
 from vf_nerf_torch.utils.weights import load_reference_net
 
 DENSITY_KEYS = ("beta", "scale", "mean")
@@ -133,6 +134,7 @@ class VectorFieldNerfRunner:
         # The host clock at the previous epoch-end read.
         self._last_read = time.perf_counter()
         self.final_loss: Optional[float] = None
+        maybe_enable_nan_debugging()
 
     # ------------------------------------------------------------- folders
     def create_output_folders(self) -> None:
@@ -229,8 +231,13 @@ class VectorFieldNerfRunner:
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
                 self.model.modules, self.model.optimizer, statics, sup,
-                self.config.vf_loss_weights, self.config.vf_loss_config)
+                self.config.vf_loss_weights, self.config.vf_loss_config,
+                remat=self._remat())
         return self._step_cache[key]
+
+    def _remat(self) -> str:
+        """The ``train_remat`` device knob ("none", "full" or "dots")."""
+        return self.config.vf_nerf_config.device_config.train_remat
 
     def _batch_rays(self) -> int:
         """The global batch: the dataset's rays trimmed to a multiple of

@@ -29,12 +29,22 @@ import json
 import os
 import struct
 import zlib
-from typing import Any
+from glob import glob
+from typing import Any, List
 
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type → samples per pixel
+
+
+def glob_imgs(path: str) -> List[str]:
+    """The PNG and JPEG files in ``path`` (JAX ``glob_imgs``'s patterns and
+    order: by extension, then as ``glob`` lists them)."""
+    imgs: List[str] = []
+    for ext in ("*.png", "*.jpg", "*.JPEG", "*.JPG"):
+        imgs.extend(glob(os.path.join(path, ext)))
+    return imgs
 
 
 def mkdir_ifnotexists(directory: str) -> None:
