@@ -1,0 +1,9 @@
+"""The eval chunks' share of the chip's float32-grade peak: the FLOPs the
+traced chunks need over (the traced window's wall seconds × the peak)."""
+
+
+def read(t):
+    if t.unit != "chunk" or not t.units:
+        return None
+    return 100.0 * t.work["step"] * t.units / (
+        t.window_s * t.peaks["f32_grade_flops"])

@@ -1,0 +1,16 @@
+"""The MLP backward's share of its roofline: 2 × the forward FLOPs of each
+pass with a gradient over (the device seconds of the step's GEMM kernels
+(cuBLAS and CUTLASS products, matched by name) × the float32-grade peak).
+None where no product ran."""
+
+PATTERN = r"gemm|gemv|xmma|cutlass|splitKreduce"
+
+
+def read(t):
+    if t.unit != "step" or "mlp_backward" not in t.work:
+        return None
+    seconds = t.kernel_seconds(PATTERN)
+    if seconds <= 0.0:
+        return None
+    return 100.0 * t.work["mlp_backward"] * t.units / (
+        seconds * t.peaks["f32_grade_flops"])
