@@ -979,3 +979,29 @@ def test_launch_counts_hold_under_threads(cuda):
         sys.setswitchinterval(interval)
     torch.cuda.synchronize()
     assert fused_mlp.launches - start == 640
+
+
+def test_span_lines_up_with_the_kernel_it_launches(cuda):
+    """A ``profiling.span`` around a ``torch.cuda._sleep`` launch on an idle
+    card, under the benchmark's CUDA-only ``torch.profiler`` window: the
+    kernel starts after the span opens and within 1 ms of it, on the clock
+    ``benchmark/spans.py`` rebuilds."""
+    from benchmark import spans as bench_spans
+    from benchmark.trace import profile
+    from vf_nerf_torch.utils import profiling
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+    def launch():
+        with profiling.span("launch"):
+            torch.cuda._sleep(1_000_000)
+        return 1
+
+    traced = profile(launch, "step", {})
+    recorded = profiling.spans()
+    (opened,) = [s[2] for s in recorded if s[0] == "launch"]
+    base = bench_spans.trace_base_ns(traced, recorded)
+    assert base is not None
+    (kernel,) = traced.kernels
+    after_us = kernel[2] - (opened - base) / 1e3
+    assert 0.0 <= after_us <= 1e3, after_us

@@ -30,6 +30,7 @@ from vf_nerf_torch.datasets.base import BaseDataset
 from vf_nerf_torch.utils import io as io_utils
 from vf_nerf_torch.utils.meshes import mesh_bounds, mesh_centroid
 from vf_nerf_torch.utils.ply import load_ply
+from vf_nerf_torch.utils.profiling import span
 
 
 class ReplicaDataset(BaseDataset):
@@ -112,12 +113,13 @@ class ReplicaDataset(BaseDataset):
         reference ``replica_dataset.py:105-119``)."""
         if not self.config.random_img_sampling:
             return
-        idx = np.random.choice(self.n_images,
-                               self.n_images // self.config.factor,
-                               replace=False)
-        self.rgb_images, self.depth_images = self._load_images(
-            self.image_paths[idx], self.depth_paths[idx])
-        self.poses = self.all_poses[idx].copy()
+        with span("train.sample_images"):
+            idx = np.random.choice(self.n_images,
+                                   self.n_images // self.config.factor,
+                                   replace=False)
+            self.rgb_images, self.depth_images = self._load_images(
+                self.image_paths[idx], self.depth_paths[idx])
+            self.poses = self.all_poses[idx].copy()
 
     def get_bounds(self) -> Tuple[float, float]:
         return 0.0, self.max_depth * 1.25

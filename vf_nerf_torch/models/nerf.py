@@ -68,6 +68,7 @@ from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
 from vf_nerf_torch.parallel.mesh import (indexed, make_mesh,
                                          on_stream_of, replicate)
 from vf_nerf_torch.utils import checkpoint as ckpt_io
+from vf_nerf_torch.utils.profiling import span
 from vf_nerf_torch.utils.weights import (load_mlp_variables,
                                          load_reference_state)
 
@@ -351,8 +352,10 @@ class VectorFieldNerf:
         rgbs, depths = [], []
         for chunk in torch.split(uv, split_size):
             n = chunk.shape[0]
-            out = self._render_chunk(chunk, pose44.expand(n, 4, 4),
-                                     intr44.expand(n, 4, 4), weights, statics)
+            with span("render.chunk"):
+                out = self._render_chunk(chunk, pose44.expand(n, 4, 4),
+                                         intr44.expand(n, 4, 4), weights,
+                                         statics)
             rgbs.append(out["rgb"])
             depths.append(out["depth"])
         return torch.cat(rgbs), torch.cat(depths)

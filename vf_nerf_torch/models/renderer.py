@@ -78,6 +78,7 @@ from vf_nerf_torch.ops.embedding import positional_encoding
 from vf_nerf_torch.ops.fused_mlp import Weights, fused_mlp
 from vf_nerf_torch.ops.ray_march import fused_ray_march, sample_density
 from vf_nerf_torch.ops.rays import get_ray_directions_and_cam_location
+from vf_nerf_torch.utils.profiling import span
 
 
 # ``device_config.compute_dtype`` names the port takes: those of the JAX
@@ -360,8 +361,11 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
     density_params = modules.density.params()
     fold = modules.supports_folding(statics)
     if fold:
-        vf_w, rn_w = folded if folded is not None else \
-            modules.folded_weights(detach=not torch.is_grad_enabled())
+        if folded is None:
+            with span("render.fold"):
+                folded = modules.folded_weights(
+                    detach=not torch.is_grad_enabled())
+        vf_w, rn_w = folded
     directions, ray_dirs, cam_loc = get_ray_directions_and_cam_location(
         uv, pose, intrinsics)
     ray_dirs = ray_dirs.contiguous()
@@ -385,58 +389,66 @@ def _render(modules, uv, pose, intrinsics, near, far, window_weights,
     # ---- coarse pass: steers the fine sampler only, no gradients ----------
     # (reused, its VF outputs are the fine pass's too, on the graph).
     reuse = modules.reuses_coarse(statics)
-    with torch.no_grad():
-        z_coarse = samplers.uniform_z_vals(
-            n_rays, statics.n_coarse, near, far, perturb=statics.perturb,
-            t=t_coarse, device=device).contiguous()
-        pts_coarse = samplers.points_from_z(cam_loc, directions, z_coarse)
-    with torch.set_grad_enabled(reuse and torch.is_grad_enabled()):
-        vf_coarse = field(pts_coarse.reshape(-1, 3))
-    with torch.no_grad():
-        normals_coarse = vf_coarse[:, :3].reshape(
-            n_rays, statics.n_coarse, 3).contiguous()
-        _, _, weights_coarse = weigh(normals_coarse, z_coarse, None, uniform)
-        argmax_coarse = torch.argmax(weights_coarse, dim=-1)
+    with span("render.coarse"):
+        with torch.no_grad():
+            z_coarse = samplers.uniform_z_vals(
+                n_rays, statics.n_coarse, near, far, perturb=statics.perturb,
+                t=t_coarse, device=device).contiguous()
+            pts_coarse = samplers.points_from_z(cam_loc, directions,
+                                                z_coarse)
+        with torch.set_grad_enabled(reuse and torch.is_grad_enabled()):
+            vf_coarse = field(pts_coarse.reshape(-1, 3))
+        with torch.no_grad():
+            normals_coarse = vf_coarse[:, :3].reshape(
+                n_rays, statics.n_coarse, 3).contiguous()
+            _, _, weights_coarse = weigh(normals_coarse, z_coarse, None,
+                                         uniform)
+            argmax_coarse = torch.argmax(weights_coarse, dim=-1)
 
     # ---- fine pass ---------------------------------------------------------
     fine_range = modules.cfg.ray_sampler_config.fine_range
     updates: Dict[str, Updates] = {}
-    if reuse:
-        z_vals, vf_out = _reuse_coarse(statics, vf_coarse, z_coarse,
-                                       weights_coarse, fine_range, near, far,
-                                       t_fine, u_extra, cam_loc, directions,
-                                       field)
-    elif statics.n_fine > 0:
-        z_vals = samplers.range_fine_z_vals(
-            z_coarse, weights_coarse, statics.n_fine, fine_range, near, far,
-            statics.perturb, t_fine, u_extra, n_active=n_fine_active)
-    else:
-        z_vals = z_coarse
-    z_vals = z_vals.contiguous()
-    n_samples = z_vals.shape[1]
-    points = samplers.points_from_z(cam_loc, directions, z_vals)
+    with span("render.sample"):
+        if reuse:
+            z_vals, vf_out = _reuse_coarse(
+                statics, vf_coarse, z_coarse, weights_coarse, fine_range,
+                near, far, t_fine, u_extra, cam_loc, directions, field)
+        elif statics.n_fine > 0:
+            z_vals = samplers.range_fine_z_vals(
+                z_coarse, weights_coarse, statics.n_fine, fine_range, near,
+                far, statics.perturb, t_fine, u_extra,
+                n_active=n_fine_active)
+        else:
+            z_vals = z_coarse
+        z_vals = z_vals.contiguous()
+        n_samples = z_vals.shape[1]
+        points = samplers.points_from_z(cam_loc, directions, z_vals)
     points_flat = points.reshape(-1, 3)
     feat_dim = modules.cfg.vf_net_config.feature_vector_dims
-    dirs_flat = ray_dirs[:, None, :].expand(-1, n_samples, -1).reshape(-1, 3)
-    # Train-mode BatchNorm keeps the fine passes' running statistics.
-    if not fold:
-        vf_out, updates["vf"] = modules.vf(points_flat, statics.train)
-    elif not reuse:
-        vf_out = modules.vf_apply_folded(vf_w, points_flat)
-    normals_flat = vf_out[:, :3]
-    feats_flat = vf_out[:, 3:3 + feat_dim]
-    if fold:
-        rgb_flat = modules.render_apply_folded(
-            rn_w, points_flat, normals_flat, dirs_flat, feats_flat)
-    else:
-        rgb_flat, updates["render"] = modules.render(
-            points_flat, normals_flat, dirs_flat, feats_flat, statics.train)
+    with span("render.fine"):
+        dirs_flat = ray_dirs[:, None, :].expand(
+            -1, n_samples, -1).reshape(-1, 3)
+        # Train-mode BatchNorm keeps the fine passes' running statistics.
+        if not fold:
+            vf_out, updates["vf"] = modules.vf(points_flat, statics.train)
+        elif not reuse:
+            vf_out = modules.vf_apply_folded(vf_w, points_flat)
+        normals_flat = vf_out[:, :3]
+        feats_flat = vf_out[:, 3:3 + feat_dim]
+        if fold:
+            rgb_flat = modules.render_apply_folded(
+                rn_w, points_flat, normals_flat, dirs_flat, feats_flat)
+        else:
+            rgb_flat, updates["render"] = modules.render(
+                points_flat, normals_flat, dirs_flat, feats_flat,
+                statics.train)
     rgb_samples = rgb_flat.reshape(n_rays, n_samples, 3)
     normals = normals_flat.reshape(n_rays, n_samples, 3).contiguous()
     n_valid = None if n_fine_active is None \
         else statics.n_coarse + n_fine_active
-    rgb, depth, weights = weigh(normals, z_vals, rgb_samples, fine_taps,
-                                n_valid=n_valid)
+    with span("render.march"):
+        rgb, depth, weights = weigh(normals, z_vals, rgb_samples, fine_taps,
+                                    n_valid=n_valid)
     out = {
         "rgb": rgb,
         "depth": depth[:, None],

@@ -71,6 +71,7 @@ from vf_nerf_torch.models.renderer import (RenderStatics, VFNerfModules,
                                            draw_uniforms, render_rays)
 from vf_nerf_torch.ops import points as points_ops
 from vf_nerf_torch.parallel.mesh import all_reduce_flat, shard_rows, world
+from vf_nerf_torch.utils.profiling import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -237,7 +238,10 @@ def make_loss_fn(modules: VFNerfModules, statics: RenderStatics,
 
     def loss_fn(batch, draws, epoch, window_weights, near, far, centroid,
                 n_fine_active=None, n_points_active=None):
-        folded = modules.folded_weights(detach=False) if fold else None
+        folded = None
+        if fold:
+            with span("train.step.fold"):
+                folded = modules.folded_weights(detach=False)
         dd_on = statics.compute_dir_derivatives and \
             epoch >= loss_config.directional_derivatives_start
         out = render_rays(modules, batch["uv"], batch["pose"],
@@ -324,36 +328,47 @@ def make_train_step(modules: VFNerfModules, optimizer: Optimizer,
 
     def step(metric_sums, batch, epoch, window_weights, near, far, centroid,
              n_fine_active=None, draws=None, generator=None):
+        with span("train.step"):
+            return _step(metric_sums, batch, epoch, window_weights, near,
+                         far, centroid, n_fine_active, draws, generator)
+
+    def _step(metric_sums, batch, epoch, window_weights, near, far, centroid,
+              n_fine_active, draws, generator):
         if not isinstance(batch, dict):
             batch = unpack_batch(batch)
         rank, size = world()
         n_local = batch["uv"].shape[0]
         n_rays = n_local * size
-        if draws is None:
-            if generator is None:
-                raise ValueError("the train step needs its draws or a "
-                                 "torch.Generator to draw them from")
-            draws = draw_step(statics, sup, n_rays, generator,
-                              batch["uv"].device)
-        draws = shard_draws(draws, slice(rank * n_local,
-                                         (rank + 1) * n_local), sup.n_points)
+        with span("train.step.draw"):
+            if draws is None:
+                if generator is None:
+                    raise ValueError("the train step needs its draws or a "
+                                     "torch.Generator to draw them from")
+                draws = draw_step(statics, sup, n_rays, generator,
+                                  batch["uv"].device)
+            draws = shard_draws(draws, slice(rank * n_local,
+                                             (rank + 1) * n_local),
+                                sup.n_points)
         n_points_active = None
         if n_fine_active is not None:
             n_points_active = max(
                 (n_rays * (statics.n_coarse + int(n_fine_active))) // 10, 1)
-        total, parts, out = loss_fn(batch, draws, epoch, window_weights,
-                                    near, far, centroid, n_fine_active,
-                                    n_points_active)
+        with span("train.step.forward"):
+            total, parts, out = loss_fn(batch, draws, epoch, window_weights,
+                                        near, far, centroid, n_fine_active,
+                                        n_points_active)
         flat = [p for v in groups.values() for p in v]
-        got = torch.autograd.grad(total, flat, allow_unused=True)
-        got = [torch.zeros_like(p) if g is None else g
-               for p, g in zip(flat, got)]
-        all_reduce_flat(got)
+        with span("train.step.backward"):
+            got = torch.autograd.grad(total, flat, allow_unused=True)
+            got = [torch.zeros_like(p) if g is None else g
+                   for p, g in zip(flat, got)]
+            all_reduce_flat(got)
         got = iter(got)
-        optimizer.step(groups, {k: [next(got) for _ in v]
-                                for k, v in groups.items()})
-        if "batch_stats_updates" in out:
-            modules.apply_batch_stats(out["batch_stats_updates"])
+        with span("train.step.optimizer"):
+            optimizer.step(groups, {k: [next(got) for _ in v]
+                                    for k, v in groups.items()})
+            if "batch_stats_updates" in out:
+                modules.apply_batch_stats(out["batch_stats_updates"])
         metrics = dict(parts, loss=total)
         return {k: metric_sums[k] + metrics[k].detach() for k in METRIC_KEYS}
 

@@ -75,7 +75,7 @@ from vf_nerf_torch.parallel.train_step import (METRIC_KEYS,
 from vf_nerf_torch.utils import io as io_utils
 from vf_nerf_torch.utils.logging import MetricsLogger
 from vf_nerf_torch.utils.prefetch import Prefetcher
-from vf_nerf_torch.utils.profiling import maybe_enable_nan_debugging
+from vf_nerf_torch.utils.profiling import maybe_enable_nan_debugging, span
 from vf_nerf_torch.utils.weights import load_reference_net
 
 DENSITY_KEYS = ("beta", "scale", "mean")
@@ -86,6 +86,17 @@ def run_seed() -> int:
     """The reference pins seed 42; ``VFNERF_SEED`` overrides it for
     run-to-run variance studies."""
     return int(os.environ.get("VFNERF_SEED", "42"))
+
+
+def _assembled(batches):
+    """``batches`` with each batch's assembly recorded as a span."""
+    it = iter(batches)
+    while True:
+        with span("feed.assemble"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 class VectorFieldNerfRunner:
@@ -248,12 +259,14 @@ class VectorFieldNerfRunner:
         """This rank's slice of one packed (R, 38) global batch on the
         device."""
         n = self._batch_rays()
-        packed = torch.from_numpy(pack_batch(
-            {k: v[:n] for k, v in batch.items() if v.size > 0}))
-        packed = packed[local_ray_slice(n, self.rank, self.world_size)]
-        if self.device.type != "cuda":
-            return packed.to(self.device)
-        return packed.pin_memory().to(self.device, non_blocking=True)
+        with span("feed.pack"):
+            packed = torch.from_numpy(pack_batch(
+                {k: v[:n] for k, v in batch.items() if v.size > 0}))
+            packed = packed[local_ray_slice(n, self.rank, self.world_size)]
+        with span("feed.copy"):
+            if self.device.type != "cuda":
+                return packed.to(self.device)
+            return packed.pin_memory().to(self.device, non_blocking=True)
 
     # --------------------------------------------------------------- train
     def train(self, draws: Optional[Draws] = None) -> None:
@@ -291,23 +304,26 @@ class VectorFieldNerfRunner:
         """One step per dataset item (reference ``train_epoch``,
         ``:161-292``). Logs the previous epoch and returns its (epoch, loss),
         or None; this epoch is logged by the next call or by ``train``."""
-        window = self.model.update_annealing(epoch)
-        # Through pinned memory: a copy from pageable memory would wait for
-        # the previous epoch's steps.
-        window_t = self.model.to_device(window)
-        centroid = self.model.to_device(self.dataset.get_centroid())
-        # As float32, as the JAX step takes them.
-        near = float(np.float32(self.model.near))
-        far = float(np.float32(self.model.far))
-        step = self._get_step()
-        fine = self._fine_active_arg()
-        sums = zero_metric_sums(self.device)
-        count = 0
-        if self._pending_log is None:
-            # The first epoch of a run is timed from its start.
-            self._last_read = time.perf_counter()
-        for fed in Prefetcher(self.dataset.epoch_batches(self._epoch_rng),
-                              self._feed, depth=2):
+        with span("train.epoch_start"):
+            window = self.model.update_annealing(epoch)
+            # Through pinned memory: a copy from pageable memory would wait
+            # for the previous epoch's steps.
+            window_t = self.model.to_device(window)
+            centroid = self.model.to_device(self.dataset.get_centroid())
+            # As float32, as the JAX step takes them.
+            near = float(np.float32(self.model.near))
+            far = float(np.float32(self.model.far))
+            step = self._get_step()
+            fine = self._fine_active_arg()
+            sums = zero_metric_sums(self.device)
+            count = 0
+            if self._pending_log is None:
+                # The first epoch of a run is timed from its start.
+                self._last_read = time.perf_counter()
+            batches = Prefetcher(
+                _assembled(self.dataset.epoch_batches(self._epoch_rng)),
+                self._feed, depth=2, wait_span="train.feed_wait")
+        for fed in batches:
             step_draws = None if draws is None else draws(epoch,
                                                           self.model.step)
             sums = step(sums, fed, epoch, window_t, near, far, centroid,
@@ -315,30 +331,36 @@ class VectorFieldNerfRunner:
                         **fine)
             count += 1
 
-        # The epoch's numbers in one copy to pinned host memory, read after
-        # the next epoch's steps are enqueued; the metric sums summed over
-        # the ranks first.
-        metrics = torch.stack([sums[k] for k in METRIC_KEYS])
-        all_reduce_flat([metrics])
-        density = self.model.density_scalar_tensors()
-        values = torch.cat([metrics, torch.stack([density[k]
-                                                  for k in DENSITY_KEYS])])
-        host = torch.empty(values.shape, dtype=values.dtype,
-                           pin_memory=self.device.type == "cuda")
-        host.copy_(values, non_blocking=True)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        pending = {"epoch": epoch, "count": count, "window": window,
-                   "host": host, "event": event,
-                   "step": self.model.step}
-        logged = self._resolve_pending_log()
+        with span("train.epoch_read"):
+            # The epoch's numbers in one copy to pinned host memory, read
+            # after the next epoch's steps are enqueued; the metric sums
+            # summed over the ranks first.
+            metrics = torch.stack([sums[k] for k in METRIC_KEYS])
+            all_reduce_flat([metrics])
+            density = self.model.density_scalar_tensors()
+            values = torch.cat([metrics, torch.stack([density[k]
+                                                      for k in DENSITY_KEYS])])
+            host = torch.empty(values.shape, dtype=values.dtype,
+                               pin_memory=self.device.type == "cuda")
+            host.copy_(values, non_blocking=True)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            pending = {"epoch": epoch, "count": count, "window": window,
+                       "host": host, "event": event,
+                       "step": self.model.step}
+            logged = self._log_pending()
         self._pending_log = pending
         return logged
 
     def _resolve_pending_log(self) -> Optional[Tuple[int, float]]:
         """Log the stashed epoch; returns its (epoch, loss) or None."""
+        with span("train.epoch_read"):
+            return self._log_pending()
+
+    def _log_pending(self) -> Optional[Tuple[int, float]]:
+        """``_resolve_pending_log`` inside a span already open."""
         pending, self._pending_log = self._pending_log, None
         if pending is None:
             return None

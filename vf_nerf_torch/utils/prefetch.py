@@ -6,13 +6,17 @@ fixed depth ahead of the consumer, so batch ``k+1`` is assembled, packed
 and copied to the device while step ``k`` is being launched. One worker
 keeps the iterator's order, and so its random draws, exactly; numpy and the
 host-to-device copy release the interpreter lock for the bulk of the work.
+``wait_span`` names the span (``utils/profiling.py``) that records the
+consumer's waits for the next result.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator, Optional
+
+from vf_nerf_torch.utils.profiling import span
 
 _SENTINEL = object()
 
@@ -22,7 +26,8 @@ class Prefetcher:
     ahead in a background thread (at most ``depth`` results waiting)."""
 
     def __init__(self, iterable: Iterable, feed_fn: Callable[[Any], Any],
-                 depth: int = 2) -> None:
+                 depth: int = 2, wait_span: Optional[str] = None) -> None:
+        self._wait_span = wait_span
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._iterable = iterable
         self._feed_fn = feed_fn
@@ -39,7 +44,11 @@ class Prefetcher:
 
     def __iter__(self) -> Iterator[Any]:
         while True:
-            item = self._queue.get()
+            if self._wait_span is None:
+                item = self._queue.get()
+            else:
+                with span(self._wait_span):
+                    item = self._queue.get()
             if item is _SENTINEL:
                 self._thread.join()
                 return
