@@ -12,6 +12,7 @@ kernels take in another order than cuBLAS and PyTorch's reductions.
 
 import copy
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1005,3 +1006,134 @@ def test_span_lines_up_with_the_kernel_it_launches(cuda):
     (kernel,) = traced.kernels
     after_us = kernel[2] - (opened - base) / 1e3
     assert 0.0 <= after_us <= 1e3, after_us
+
+
+# -------------------------------------- no host-device sync once warmed up
+
+CONF = str(Path(__file__).resolve().parents[1] / "confs" / "vf_nerf.conf")
+# The size of the benchmark's office views, and depth bounds of a room.
+VIEW_HW = (240, 320)
+NEAR_FAR = (0.5, 4.5)
+
+
+def _without_syncs(fn):
+    """``fn()`` under sync debug mode "error": a CUDA call that makes the
+    host wait for the stream (a blocking copy, ``.item()``, a mask's
+    ``nonzero``, a synchronize) raises. The mode is restored after."""
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    return out
+
+
+def _shipped_model(cuda, dd: bool):
+    """The facade at the shipped conf's full widths: BatchNorm frozen and
+    folded, or with ``dd`` the DD weight 0.1 and train-mode BatchNorm, as
+    the runner sets them. Fine count 100."""
+    from vf_nerf_torch.config import parse_config
+    from vf_nerf_torch.models.nerf import VectorFieldNerf
+    cfg = parse_config(scene="office", config_path=CONF)
+    if dd:
+        cfg.vf_loss_weights.directional_derivatives = 0.1
+    model = VectorFieldNerf(cfg.vf_nerf_config, seed=0, device=cuda)
+    with torch.no_grad():
+        # The benchmark's gain on the seeded VF net: rays meet density.
+        for layer in model.modules.vf.layers:
+            (layer[0] if isinstance(layer, torch.nn.Sequential)
+             else layer).weight.mul_(3.5)
+    model.near, model.far = NEAR_FAR
+    model.fine_n_samples = 100
+    if dd:
+        model.train()
+    else:
+        model.eval()
+    return cfg, model
+
+
+def _office_camera():
+    """(pinhole intrinsics, a pose inside the scene), both (4, 4)."""
+    h, w = VIEW_HW
+    intr = np.eye(4, dtype=np.float32)
+    intr[0, 0] = intr[1, 1] = 0.8 * w
+    intr[0, 2], intr[1, 2] = w / 2.0, h / 2.0
+    pose = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    pose[:3, 3] = (0.1, -0.2, 0.3)
+    return intr, pose
+
+
+def _train_step_on_card(cuda, dd: bool, n: int = 1008):
+    """(the facade, a call of the runner's step returning its metric
+    sums): ``n`` rays of an office view, epoch 1500; frozen BatchNorm with
+    static fine growth (100 live fine samples of the padded 100, 200 a
+    ray), or the DD step."""
+    from vf_nerf_torch.parallel import train_step as ts
+    cfg, model = _shipped_model(cuda, dd)
+    epoch = 1500
+    rs = cfg.vf_nerf_config.ray_sampler_config
+    statics = model.render_statics(
+        n_fine=None if dd else rs.max_samples, compute_dir_derivatives=dd)
+    sup = ts.SupervisionStatics.from_config(
+        cfg.vf_nerf_config, "exterior_synthetic", n_rays=n,
+        n_samples=statics.n_coarse + statics.n_fine,
+        border_radius=cfg.dataset_config.border_radius)
+    step = ts.make_train_step(model.modules, model.optimizer, statics, sup,
+                              cfg.vf_loss_weights, cfg.vf_loss_config)
+    rng = np.random.RandomState(3)
+    intr, pose = _office_camera()
+    h, w = VIEW_HW
+    packed = ts.pack_batch({
+        "uv": rng.uniform(0, (w, h), (n, 2)).astype(np.float32),
+        "rgb": rng.rand(n, 3).astype(np.float32),
+        "depth": rng.uniform(1.0, 4.0, (n, 1)).astype(np.float32),
+        "intrinsics": np.broadcast_to(intr, (n, 4, 4)),
+        "pose": np.broadcast_to(pose, (n, 4, 4))})
+    fed = torch.from_numpy(packed).to(cuda)
+    window = model.to_device(model.update_annealing(epoch))
+    centroid = torch.zeros(3, device=cuda)
+    fine = {} if dd else {"n_fine_active": model.fine_n_samples}
+    sums = [ts.zero_metric_sums(cuda)]
+
+    def one():
+        sums[0] = step(sums[0], fed, epoch, window, *NEAR_FAR, centroid,
+                       generator=model.generator, **fine)
+        return sums[0]
+    return model, one
+
+
+@pytest.mark.parametrize("dd", [False, True], ids=["folded", "dd"])
+def test_warm_train_step_enqueues_without_a_sync(cuda, dd):
+    """After one warm-up call, a production train step of the shipped conf
+    (the folded step at static fine growth, and the DD step) enqueues all
+    its work without a host-blocking CUDA call, so that the host runs ahead
+    of the card across steps; the step still trains."""
+    model, one = _train_step_on_card(cuda, dd)
+    one()
+    before = model.optimizer.count
+    sums = _without_syncs(one)
+    assert model.optimizer.count == before + 1
+    assert np.isfinite(float(sums["loss"]))
+
+
+def test_warm_render_image_enqueues_without_a_sync(cuda):
+    """After one warm-up view, ``render_image`` of a small view in 1024-ray
+    chunks (the last one short), from host pixels as the eval and the
+    benchmark pass them, enqueues every chunk without a host-blocking CUDA
+    call; the render is the same as the warm-up's from the same draws."""
+    _, model = _shipped_model(cuda, dd=False)
+    intr, pose = _office_camera()
+    v, u = np.meshgrid(np.arange(40, 88), np.arange(60, 112), indexing="ij")
+    pixels = np.stack([u.ravel(), v.ravel()], -1).astype(np.float32)
+    assert len(pixels) == 2496              # 2 whole chunks and a short one
+    state = model.generator.get_state()
+    ref = model.render_image(pixels, pose, intr, 1500, split_size=1024)
+    model.generator.set_state(state)
+    rgb, depth = _without_syncs(lambda: model.render_image(
+        pixels, pose, intr, 1500, split_size=1024))
+    assert rgb.shape == (2496, 3) and depth.shape == (2496, 1)
+    assert torch.equal(rgb, ref[0]) and torch.equal(depth, ref[1])
+    assert bool(torch.isfinite(rgb).all()) and float(rgb.mean()) > 0.0

@@ -114,6 +114,23 @@ def _jax_draws(key, n_rays, n_coarse, n_fine):
 
 
 class TestSamplers:
+    @pytest.mark.parametrize("n", [1, 2, 3, 64, 100, 130, 200, 201])
+    def test_linspace01_is_jax_linspace_bit_for_bit(self, n):
+        """The samplers' linspace, at the counts the port takes it at
+        (the coarse count, ``sample_pdf``'s deterministic ``u``), equals
+        ``jnp.linspace`` bit for bit and ends exactly at 1.
+        ``np.linspace`` rounds a float64 product to float32, so it may
+        differ by one ulp inside."""
+        ours = samplers._linspace01(n, torch.float32, "cpu").numpy()
+        ref = np.asarray(jnp.linspace(0, 1, n))
+        assert ours.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(ours.view(np.int32),
+                                      ref.view(np.int32))
+        assert ours[0] == 0.0 and (n == 1 or ours[-1] == 1.0)
+        ulps = ours.view(np.int32).astype(np.int64) - np.linspace(
+            0, 1, n, dtype=np.float32).view(np.int32)
+        assert np.abs(ulps).max() <= 1
+
     @pytest.mark.parametrize("perturb", [True, False])
     def test_uniform_z_vals(self, perturb):
         key = jax.random.PRNGKey(7)

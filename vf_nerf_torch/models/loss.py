@@ -40,10 +40,12 @@ def masked_sq_err(pred: torch.Tensor, gt: torch.Tensor,
                   mask: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of squared errors over the masked rows, number of masked
-    elements), both of this rank's rows."""
+    elements), both of this rank's rows. Unmasked, the count is a 0-d
+    host tensor, which torch's ops on any device take as a scalar: a
+    device tensor made from a host number is a blocking copy."""
     sq = (pred - gt) ** 2
     if mask is None:
-        return torch.sum(sq), sq.new_tensor(float(sq.numel()))
+        return torch.sum(sq), torch.tensor(float(sq.numel()), dtype=sq.dtype)
     m = mask.to(sq.dtype)
     return torch.sum(sq * m[..., None]), torch.sum(m) * sq.shape[-1]
 

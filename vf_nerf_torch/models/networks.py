@@ -119,7 +119,7 @@ def batch_var_mean(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``torch.var_mean``."""
     if not sharded():
         return torch.var_mean(x, dim=0, correction=0)
-    n = global_sum(torch.tensor(float(x.shape[0]), device=x.device))
+    n = global_sum(torch.full((), float(x.shape[0]), device=x.device))
     mean = all_reduce_sum(torch.sum(x, dim=0)) / n
     var = all_reduce_sum(torch.sum((x - mean) ** 2, dim=0)) / n
     return var, mean

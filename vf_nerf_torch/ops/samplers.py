@@ -54,12 +54,14 @@ def _stratify(z_vals: torch.Tensor, t: torch.Tensor,
 
 def _linspace01(n: int, dtype, device) -> torch.Tensor:
     """``jnp.linspace(0, 1, n)`` bit for bit: ``i * (1 / (n - 1))`` with the
-    end point set exactly."""
+    end point set exactly, by a fill on the device: an indexed write of a
+    host scalar (``t[-1] = 1.0``) is a blocking copy that drains the
+    stream once a render."""
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
     t = torch.arange(n, dtype=dtype, device=device) * torch.tensor(
         1.0 / (n - 1), dtype=dtype)
-    t[-1] = 1.0
+    t[-1:].fill_(1.0)
     return t
 
 

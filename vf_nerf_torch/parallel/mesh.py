@@ -180,8 +180,8 @@ def global_mean(values: torch.Tensor) -> torch.Tensor:
     the global element count (``torch.mean`` at one rank)."""
     if not sharded():
         return torch.mean(values)
-    count = global_sum(torch.tensor(float(values.numel()),
-                                    device=values.device))
+    count = global_sum(torch.full((), float(values.numel()),
+                                  device=values.device))
     return torch.sum(values) / count
 
 
