@@ -179,3 +179,44 @@ def test_render_image_records_a_span_per_chunk(tmp_path):
         inner = named(recorded, f"render.{stage}")
         assert len(inner) == 2
         assert all(inside(i, c) for i, c in zip(inner, chunks))
+
+
+def test_joint_epochs_record_their_spans(tmp_path):
+    """A joint epoch with a supervision block and one without: the step's
+    and the block's spans nested as named, on the main thread, and none
+    outside a profiler session."""
+    from test_torch_joint_reference import small_joint_runner
+    runner = small_joint_runner(tmp_path)[0]
+    before = profiling.spans()
+    runner.train_epoch(0)            # a block, outside a session
+    assert profiling.spans() == before
+    with session():
+        runner.train_epoch(10)       # a block
+        runner.train_epoch(11)
+    recorded = profiling.spans()
+    main = threading.get_native_id()
+    assert {s[1] for s in recorded} == {main}
+    steps = named(recorded, "joint.step")
+    assert len(steps) == 2 * len(runner.dataset)
+    for part in ("forward", "backward", "optimizer"):
+        nested = named(recorded, f"joint.step.{part}")
+        assert len(nested) == len(steps)
+        assert all(inside(n, s) for n, s in zip(nested, steps))
+    forward = named(recorded, "joint.step.forward")
+    for stage in ("coarse", "sample", "fine", "march"):
+        inner = named(recorded, f"render.{stage}")
+        assert len(inner) == len(steps)
+        assert all(inside(i, f) for i, f in zip(inner, forward))
+    (block,) = named(recorded, "joint.supervise")
+    assert block[3] <= steps[0][2]
+    n_sup = runner.config.train_config.supervision_epochs
+    for part, count in (("bases", 1), ("batch", 1), ("step", n_sup)):
+        nested = named(recorded, f"joint.supervise.{part}")
+        assert len(nested) == count
+        assert all(inside(n, block) for n in nested)
+    reads = named(recorded, "joint.epoch_read")
+    assert len(reads) == 2
+    assert reads[0][2] >= steps[len(runner.dataset) - 1][3]
+    assert reads[1][2] >= steps[-1][3]
+    assert len(named(recorded, "joint.feed_wait")) == \
+        2 * (len(runner.dataset) + 1)

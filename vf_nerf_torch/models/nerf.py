@@ -145,10 +145,31 @@ class Optimizer:
                     dst.copy_(src)
         self.count = int(state["count"])
 
+    def next_scalars(self) -> Tuple[float, float, float]:
+        """(−lr, 1 − b1^t, 1 − b2^t) of the next step (t = count + 1), as
+        ``step`` takes them."""
+        t = self.count + 1
+        return (-self.schedule(self.count), 1.0 - _f32_pow(self.b1, t),
+                1.0 - _f32_pow(self.b2, t))
+
     @torch.no_grad()
-    def step(self, params: Groups, grads: Groups) -> None:
+    def step(self, params: Groups, grads: Groups,
+             scalars: Optional[Tuple[torch.Tensor, ...]] = None) -> None:
         """One update of ``params`` from ``grads`` (same groups, same
-        order)."""
+        order). ``scalars``: ``next_scalars`` as 0-d tensors, read on the
+        device (a captured step: no clip, decay or duplicate group), and
+        the count left to the caller."""
+        if scalars is not None:
+            if self.clip_norm is not None or self.weight_decay > 0 or \
+                    self.duplicate_vf:
+                raise ValueError("a step with device scalars takes no clip, "
+                                 "weight decay or duplicate group")
+            neg_lr, c1, c2 = scalars
+            for k in params:
+                update = self._adam_sub(k, grads[k], c1, c2)
+                torch._foreach_mul_(update, neg_lr)
+                torch._foreach_add_(params[k], update)
+            return
         lr = self.schedule(self.count)
         t = self.count + 1
         if self.clip_norm is not None:
@@ -160,11 +181,11 @@ class Optimizer:
         for k in params:
             g = grads[k]
             if self.duplicate_vf and k == "vf":
-                u1 = self._adam_sub(k, g, 2 * t - 1)
-                u2 = self._adam_sub(k, g, 2 * t)
+                u1 = self._adam_sub(k, g, *self._corrections(2 * t - 1))
+                u2 = self._adam_sub(k, g, *self._corrections(2 * t))
                 update = torch._foreach_add(u1, u2)
             else:
-                update = self._adam_sub(k, g, t)
+                update = self._adam_sub(k, g, *self._corrections(t))
             torch._foreach_mul_(update, -lr)
             torch._foreach_add_(params[k], update)
         self.count = t
@@ -184,10 +205,15 @@ class Optimizer:
         return {k: torch._foreach_mul(v, coef ** 2 if k == "vf" else coef)
                 for k, v in grads.items()}
 
-    def _adam_sub(self, key: str, g: List[torch.Tensor],
-                  step: int) -> List[torch.Tensor]:
+    def _corrections(self, step: int) -> Tuple[float, float]:
+        """Adam's bias corrections (1 − b1^step, 1 − b2^step)."""
+        return 1.0 - _f32_pow(self.b1, step), 1.0 - _f32_pow(self.b2, step)
+
+    def _adam_sub(self, key: str, g: List[torch.Tensor], c1, c2
+                  ) -> List[torch.Tensor]:
         """Moments of group ``key`` updated in place; returns the unscaled
-        update mhat / (sqrt(vhat) + eps) at Adam count ``step``."""
+        update mhat / (sqrt(vhat) + eps) with the bias corrections ``c1``,
+        ``c2`` (numbers or 0-d tensors)."""
         b1, b2 = self.b1, self.b2
         mu, nu = self.mu[key], self.nu[key]
         torch._foreach_mul_(mu, b1)
@@ -195,8 +221,8 @@ class Optimizer:
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
                                                    1.0 - b2))
-        mhat = torch._foreach_div(mu, 1.0 - _f32_pow(b1, step))
-        vhat = torch._foreach_div(nu, 1.0 - _f32_pow(b2, step))
+        mhat = torch._foreach_div(mu, c1)
+        vhat = torch._foreach_div(nu, c2)
         denom = torch._foreach_add(torch._foreach_sqrt(vhat), self.eps)
         return torch._foreach_div(mhat, denom)
 

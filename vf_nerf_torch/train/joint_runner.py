@@ -51,6 +51,27 @@ the file has them, the refined poses (the JAX stage reloads the model
 only). The JAX package's scan dispatch is not ported: a step is a sequence
 of launches on one card.
 
+On one CUDA card the joint step replays a CUDA graph (``StepGraph``): the
+first step of each configuration (batch and draw shapes, render statics,
+bounds, frozen or not, optimizers) runs eagerly, the second is captured and
+every later one copies its batch, draws, window and sums into the graph's
+static inputs, fills the step's Adam numbers (−lr, 1 − b1^t, 1 − b2^t) into
+0-d tensors and replays: the same kernels on the same data, with one launch
+for the ~1,000 the host would enqueue. ``cuda_graphs = False`` turns it off;
+a capture that fails turns it off with a warning. Without given draws the
+step draws them from the model's generator before the render, in
+``draw_uniforms``' order, as the render would. ``last_step`` holds the last
+step's loss parts, each trainable tensor's gradient and (joint steps) the
+render's ``argmax_coarse``, ``points`` and ``normals``; in a replayed step
+they are the graph's tensors, overwritten by the next one.
+
+Spans (``utils/profiling.py::span``, recorded only inside a profiler
+session): ``joint.step`` with ``.forward`` (the render's ``render.*`` inside),
+``.backward`` and ``.optimizer`` (a replayed step records ``joint.step``
+alone); ``joint.supervise`` with ``.bases`` (the bases' read to the host
+included), ``.batch`` and ``.step``; ``joint.epoch_read`` (the epoch's sums
+read to the host); ``joint.feed_wait`` (blocked on the next batch).
+
 Data parallel (``ROADMAP.md`` A.6), as the JAX stage shards over its
 devices: one process per device (``parallel/multihost.py``), every rank
 with the same batches, draws and supervision points, each trimmed to a
@@ -66,6 +87,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -88,9 +110,12 @@ from vf_nerf_torch.parallel.multihost import (broadcast_from_rank0,
 from vf_nerf_torch.utils import checkpoint as ckpt_io
 from vf_nerf_torch.utils.logging import MetricsLogger
 from vf_nerf_torch.utils.prefetch import Prefetcher
+from vf_nerf_torch.utils.profiling import span
 
 Draws = Callable[[int, int], Dict[str, torch.Tensor]]
 RAY_KEYS = ("uv", "rgb", "depth", "intrinsics", "view_idx")
+DRAW_KEYS = ("t_coarse", "t_fine", "u_extra")
+RENDER_KEYS = ("argmax_coarse", "points", "normals")
 
 
 def snap_to_bases(vectors: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
@@ -101,6 +126,141 @@ def snap_to_bases(vectors: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
                                          device=vectors.device), best])
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
     return bases[best] * signs[:, None]
+
+
+def complete_draws(statics, draws: Optional[Dict[str, torch.Tensor]],
+                   n_rays: int, generator, device
+                   ) -> Dict[str, Optional[torch.Tensor]]:
+    """``draws`` with what the render would draw itself: where one that the
+    statics need is missing, all three from ``generator`` in
+    ``draw_uniforms``' order, the missing ones taken from that draw
+    (``models/renderer.py::_render``)."""
+    draws = {k: (draws or {}).get(k) for k in DRAW_KEYS}
+    has_fine = statics.n_fine > 0
+    need = {"t_coarse": statics.perturb,
+            "t_fine": statics.perturb and has_fine, "u_extra": has_fine}
+    if any(need[k] and draws[k] is None for k in DRAW_KEYS):
+        drawn = draw_uniforms(statics, n_rays, generator, device)
+        draws = {k: drawn[k] if draws[k] is None else draws[k]
+                 for k in DRAW_KEYS}
+    return draws
+
+
+class EagerGraph:
+    """``torch.cuda.CUDAGraph``'s part that ``StepGraph`` uses, run eagerly
+    (for tests on the CPU): ``capture`` runs the body, which stands for the
+    first replay (a CUDA capture runs nothing, and ``StepGraph`` fills the
+    static inputs before it); each later ``replay`` runs it again and
+    copies its outputs into the first run's tensors."""
+
+    def capture(self, body: Callable[[], List[torch.Tensor]]
+                ) -> List[torch.Tensor]:
+        self._body = body
+        self._outs = body()
+        self._ran = True          # the capture's run is the first replay's
+        return self._outs
+
+    def replay(self) -> None:
+        if self._ran:
+            self._ran = False
+            return
+        outs = self._body()
+        with torch.no_grad():
+            for dst, src in zip(self._outs, outs, strict=True):
+                dst.copy_(src)
+
+
+class CudaGraph:
+    """One CUDA graph: ``capture`` records the body's launches on a side
+    stream (other threads' CUDA calls stay legal meanwhile), ``replay``
+    launches them on the current stream."""
+
+    def capture(self, body: Callable[[], List[torch.Tensor]]
+                ) -> List[torch.Tensor]:
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+            outs = body()
+        return outs
+
+    def replay(self) -> None:
+        self._graph.replay()
+
+
+class StepGraph:
+    """A joint step captured once and replayed: static copies of its batch,
+    draws, window and incoming sums; 0-d tensors of each optimizer's
+    (−lr, 1 − b1^t, 1 − b2^t); its outputs (the sums, ``last_step``'s
+    record) are the graph's own tensors."""
+
+    def __init__(self, runner: "JointOptimizationRunner", key: tuple,
+                 sums: Dict[str, torch.Tensor],
+                 batch: Dict[str, torch.Tensor],
+                 draws: Dict[str, Optional[torch.Tensor]], statics,
+                 near: float, far: float, window: torch.Tensor,
+                 graph) -> None:
+        self.key = key
+        self.held = (runner.model_opt, runner.pose_opt)   # keeps ids unique
+        dev = runner.device
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.draws = {k: None if v is None else v.clone()
+                      for k, v in draws.items()}
+        self.window = window.clone()
+        self.sums = [sums[k].clone() for k in runner.JOINT_METRICS]
+        self.opts = {name: opt for name, opt in
+                     (("model", runner.model_opt), ("pose", runner.pose_opt))
+                     if opt is not None}
+        self.scalars = {name: tuple(torch.zeros((), device=dev)
+                                    for _ in range(3)) for name in self.opts}
+        self.graph = graph
+        frozen = runner.model_opt is None
+        layout: dict = {}
+
+        def body() -> List[torch.Tensor]:
+            parts, record = runner._joint_update(
+                self.batch, self.draws, statics, near, far, self.window,
+                frozen, scalars=self.scalars)
+            sums = [s + parts[k]
+                    for s, k in zip(self.sums, runner.JOINT_METRICS)]
+            layout["leaves"] = [leaf for leaf, _ in record["grads"]]
+            return (sums + [parts[k] for k in runner.JOINT_METRICS] +
+                    [g for _, g in record["grads"]] +
+                    [record["render"][k] for k in RENDER_KEYS])
+
+        self._fill()
+        outs = graph.capture(body)
+        n = len(runner.JOINT_METRICS)
+        self.out = dict(zip(runner.JOINT_METRICS, outs[:n]))
+        grads = outs[2 * n:len(outs) - len(RENDER_KEYS)]
+        self.record = {
+            "parts": dict(zip(runner.JOINT_METRICS, outs[n:2 * n])),
+            "grads": list(zip(layout["leaves"], grads, strict=True)),
+            "render": dict(zip(RENDER_KEYS, outs[-len(RENDER_KEYS):]))}
+
+    def _fill(self) -> None:
+        for name, opt in self.opts.items():
+            for dst, value in zip(self.scalars[name], opt.next_scalars()):
+                dst.fill_(value)
+
+    def run(self, runner: "JointOptimizationRunner",
+            sums: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+            draws: Dict[str, Optional[torch.Tensor]],
+            window: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One step: inputs into the static tensors, then the replay."""
+        with torch.no_grad():
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
+            for k, v in draws.items():
+                if v is not None:
+                    self.draws[k].copy_(v)
+            self.window.copy_(window)
+            torch._foreach_copy_(self.sums,
+                                 [sums[k] for k in runner.JOINT_METRICS])
+            self._fill()
+        self.graph.replay()
+        for opt in self.opts.values():
+            opt.count += 1
+        runner.last_step = self.record
+        return dict(self.out)
 
 
 class PoseDecay:
@@ -124,7 +284,11 @@ class JointOptimizationRunner:
                      "similarity_loss")
     SUP_METRICS = ("loss", "surface_loss", "non_surface_loss")
 
-    def __init__(self, config: JointOptimizationConfig, device=None) -> None:
+    def __init__(self, config: JointOptimizationConfig, device=None,
+                 dataset=None) -> None:
+        """``dataset``: the scene to refine against, in place of the one the
+        VF conf names; the poses, the bounds and the learning-rate decay
+        steps follow it."""
         self.config = config
         vf_cfg = config.vf_config
         np.random.seed(42)
@@ -133,8 +297,9 @@ class JointOptimizationRunner:
         if device is None:
             device = config_device(vf_cfg) if self.world_size == 1 \
                 else local_device(config_device(vf_cfg))
-        self.dataset = dataset_dict[vf_cfg.dataset_config.dataset_name](
-            vf_cfg.dataset_config)
+        self.dataset = dataset if dataset is not None else \
+            dataset_dict[vf_cfg.dataset_config.dataset_name](
+                vf_cfg.dataset_config)
         tc = config.train_config
         self.model = VectorFieldNerf(
             vf_cfg.vf_nerf_config, seed=42, device=device,
@@ -173,6 +338,11 @@ class JointOptimizationRunner:
         self._bases: Optional[np.ndarray] = None
         self._rng = np.random.RandomState(42)
         self.joint_steps = 0
+        self.cuda_graphs = self.device.type == "cuda" and self.world_size == 1
+        self.graph_factory: Callable[[], Any] = CudaGraph
+        self._step_graph: Optional[StepGraph] = None
+        self._graph_key_seen: Optional[tuple] = None
+        self.last_step: Dict[str, Any] = {}
 
     # -------------------------------------------------------------- poses
     @property
@@ -214,14 +384,21 @@ class JointOptimizationRunner:
                 param_groups(self.model.modules))
 
     def _apply(self, model_grads: Optional[Dict[str, List[torch.Tensor]]],
-               pose_grad: torch.Tensor) -> None:
-        """One Adam step of each group (the field's unless frozen)."""
+               pose_grad: torch.Tensor,
+               scalars: Optional[Dict[str, Tuple[torch.Tensor, ...]]] = None
+               ) -> None:
+        """One Adam step of each group (the field's unless frozen);
+        ``scalars``: each optimizer's step numbers as 0-d tensors
+        (``StepGraph``), its count left to the caller."""
+        scalars = scalars or {}
         if self.config.train_config.anchor_first_pose:
             pose_grad = pose_grad.clone()
             pose_grad[0] = 0.0
         if self.model_opt is not None:
-            self.model_opt.step(param_groups(self.model.modules), model_grads)
-        self.pose_opt.step({"poses": [self.poses]}, {"poses": [pose_grad]})
+            self.model_opt.step(param_groups(self.model.modules), model_grads,
+                                scalars=scalars.get("model"))
+        self.pose_opt.step({"poses": [self.poses]}, {"poses": [pose_grad]},
+                           scalars=scalars.get("pose"))
 
     def _grads(self, total: torch.Tensor, with_model: bool
                ) -> Tuple[Optional[Dict[str, List[torch.Tensor]]],
@@ -234,6 +411,7 @@ class JointOptimizationRunner:
         got = [torch.zeros_like(p) if g is None else g
                for p, g in zip(flat, got)]
         all_reduce_flat(got)
+        self._last_grads = list(zip(flat, got))
         out, i = {}, 0
         for key, ps in groups.items():
             out[key] = got[i:i + len(ps)]
@@ -249,6 +427,13 @@ class JointOptimizationRunner:
         """(total, parts) of the joint loss on one ray batch (this rank's
         slice; ``draws``: the global batch's, or None to draw them); the
         graph reaches the poses and, unless ``freeze_model``, the field."""
+        total, parts, _ = self._joint_loss(batch, draws, statics, near, far,
+                                           window, freeze_model)
+        return total, parts
+
+    def _joint_loss(self, batch, draws, statics, near, far, window,
+                    freeze_model):
+        """``joint_loss`` and the render's outputs."""
         modules = self.model.modules
         weights = self.weights
         folded = modules.folded_weights(detach=freeze_model)
@@ -285,7 +470,52 @@ class JointOptimizationRunner:
         total = (weights.rgb * rgb_loss + weights.depth * depth_loss +
                  weights.unit_norm * unit_norm + weights.similarity * sim)
         return total, {"rgb_loss": rgb_loss, "depth_loss": depth_loss,
-                       "unit_norm_loss": unit_norm, "similarity_loss": sim}
+                       "unit_norm_loss": unit_norm,
+                       "similarity_loss": sim}, out
+
+    def _joint_update(self, batch, draws, statics, near, far, window,
+                      frozen: bool, scalars=None
+                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        """Loss, gradients and update of one ray batch: (the loss parts
+        with ``"loss"``, ``last_step``'s record)."""
+        with span("joint.step.forward"):
+            total, parts, out = self._joint_loss(batch, draws, statics, near,
+                                                 far, window, frozen)
+        with span("joint.step.backward"):
+            model_grads, pose_grad = self._grads(total,
+                                                 with_model=not frozen)
+        with span("joint.step.optimizer"):
+            self._apply(model_grads, pose_grad, scalars)
+        parts["loss"] = total
+        parts = {k: v.detach() for k, v in parts.items()}
+        return parts, {"parts": parts, "grads": self._last_grads,
+                       "render": {k: out[k].detach() for k in RENDER_KEYS}}
+
+    def _graph_for(self, sums, batch, draws, statics, near, far, window
+                   ) -> Optional[StepGraph]:
+        """The graph that replays this step, captured on the second step of
+        its key; None where the step runs eagerly."""
+        key = (tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()),
+               tuple(None if v is None else tuple(v.shape)
+                     for v in draws.values()),
+               statics, near, far, tuple(window.shape),
+               id(self.model_opt), id(self.pose_opt), id(self.poses))
+        graph = self._step_graph
+        if graph is not None and graph.key == key:
+            return graph
+        self._step_graph = None
+        if self._graph_key_seen != key:
+            self._graph_key_seen = key
+            return None
+        try:
+            self._step_graph = StepGraph(self, key, sums, batch, draws,
+                                         statics, near, far, window,
+                                         self.graph_factory())
+        except RuntimeError as err:
+            warnings.warn(f"the joint step runs eagerly: its capture as a "
+                          f"CUDA graph failed ({err})")
+            self.cuda_graphs = False
+        return self._step_graph
 
     def joint_step(self, sums: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor],
@@ -294,13 +524,18 @@ class JointOptimizationRunner:
                    ) -> Dict[str, torch.Tensor]:
         """Loss, gradients and the update of one ray batch; returns the
         metric sums with this step's values added."""
-        frozen = self.model_opt is None
-        total, parts = self.joint_loss(batch, draws, statics, near, far,
-                                       window, freeze_model=frozen)
-        model_grads, pose_grad = self._grads(total, with_model=not frozen)
-        self._apply(model_grads, pose_grad)
-        parts["loss"] = total
-        return {k: sums[k] + parts[k].detach() for k in self.JOINT_METRICS}
+        with span("joint.step"):
+            if self.cuda_graphs:
+                draws = complete_draws(statics, draws, batch["uv"].shape[0],
+                                       self.model.generator, self.device)
+                graph = self._graph_for(sums, batch, draws, statics, near,
+                                        far, window)
+                if graph is not None:
+                    return graph.run(self, sums, batch, draws, window)
+            parts, self.last_step = self._joint_update(
+                batch, draws, statics, near, far, window,
+                frozen=self.model_opt is None)
+            return {k: sums[k] + parts[k] for k in self.JOINT_METRICS}
 
     def supervised_loss(self, surface: torch.Tensor, surface_gt: torch.Tensor,
                         off: torch.Tensor, off_gt: torch.Tensor
@@ -322,11 +557,14 @@ class JointOptimizationRunner:
     def supervised_step(self, sums: Dict[str, torch.Tensor],
                         arrays: Tuple[torch.Tensor, ...]
                         ) -> Dict[str, torch.Tensor]:
-        total, parts = self.supervised_loss(*arrays)
-        model_grads, pose_grad = self._grads(total, with_model=True)
-        self._apply(model_grads, pose_grad)
-        parts["loss"] = total
-        return {k: sums[k] + parts[k].detach() for k in self.SUP_METRICS}
+        with span("joint.supervise.step"):
+            total, parts = self.supervised_loss(*arrays)
+            model_grads, pose_grad = self._grads(total, with_model=True)
+            self._apply(model_grads, pose_grad)
+            parts["loss"] = total
+            parts = {k: v.detach() for k, v in parts.items()}
+            self.last_step = {"parts": parts, "grads": self._last_grads}
+            return {k: sums[k] + parts[k] for k in self.SUP_METRICS}
 
     # -------------------------------------------------------------- bases
     def dominant_bases(self) -> np.ndarray:
@@ -443,18 +681,8 @@ class JointOptimizationRunner:
         log: Dict[str, float] = {}
         if (self.weights.supervision > 0 and tc.supervise_every > 0
                 and epoch >= pose_only and epoch % tc.supervise_every == 0):
-            self._bases = broadcast_from_rank0(
-                self.dominant_bases() if self.rank == 0 else None)
-            batches = [self.supervision_batch(self._rng)
-                       for _ in range(tc.supervision_epochs)]
-            sup = self._zero_sums(self.SUP_METRICS)
-            for arrays in batches:
-                sup = self.supervised_step(sup, arrays)
-            n_sup = max(len(batches), 1)
-            sup_values = torch.stack(list(sup.values()))
-            all_reduce_flat([sup_values])
-            log.update({f"supervised_{k}": v / n_sup
-                        for k, v in zip(sup, sup_values.tolist())})
+            with span("joint.supervise"):
+                log.update(self._supervise(tc.supervision_epochs))
 
         window = self.model.to_device(self.model.window_weights)
         near = float(np.float32(self.model.near))
@@ -463,7 +691,8 @@ class JointOptimizationRunner:
         count, n_rays = 0, 0
         t0 = time.perf_counter()
         for batch in Prefetcher(self.dataset.epoch_batches(self._rng),
-                                self._feed, depth=2):
+                                self._feed, depth=2,
+                                wait_span="joint.feed_wait"):
             step_draws = None if draws is None else draws(epoch,
                                                           self.joint_steps)
             sums = self.joint_step(sums, batch, step_draws, statics, near,
@@ -473,13 +702,33 @@ class JointOptimizationRunner:
             self.joint_steps += 1
         values = torch.stack(list(sums.values()))
         all_reduce_flat([values])
-        values = values.tolist()                               # synchronizes
+        with span("joint.epoch_read"):
+            values = values.tolist()                           # synchronizes
         elapsed = time.perf_counter() - t0
         log.update({k: v / max(count, 1) for k, v in zip(sums, values)})
         log["rays_per_sec"] = count * n_rays / max(elapsed, 1e-9)
         if self.logger is not None:
             self.logger.log(log, step=epoch)
         return log
+
+    def _supervise(self, n_steps: int) -> Dict[str, float]:
+        """A supervision block: the dominant bases (rank 0's), ``n_steps``
+        batches snapped against the field as it stands, one supervised step
+        each; returns the block's mean losses."""
+        with span("joint.supervise.bases"):
+            self._bases = broadcast_from_rank0(
+                self.dominant_bases() if self.rank == 0 else None)
+        with span("joint.supervise.batch"):
+            batches = [self.supervision_batch(self._rng)
+                       for _ in range(n_steps)]
+        sup = self._zero_sums(self.SUP_METRICS)
+        for arrays in batches:
+            sup = self.supervised_step(sup, arrays)
+        sup_values = torch.stack(list(sup.values()))
+        all_reduce_flat([sup_values])
+        n_sup = max(len(batches), 1)
+        return {f"supervised_{k}": v / n_sup
+                for k, v in zip(sup, sup_values.tolist())}
 
     def save(self, epoch: int) -> str:
         """The model's checkpoint (``VectorFieldNerf.save``'s layout) with

@@ -28,7 +28,10 @@ The spans of the program (a metric of ``benchmark/metrics`` reads each):
   read and logged), ``train.sample_images`` (a dataset's per-epoch
   resampling), ``render.chunk`` (an eval chunk) and, inside a render,
   ``render.fold``, ``render.coarse``, ``render.sample``, ``render.fine``,
-  ``render.march``;
+  ``render.march``; the joint stage's ``joint.step`` with ``.forward``,
+  ``.backward`` and ``.optimizer``, ``joint.supervise`` with ``.bases``,
+  ``.batch`` and ``.step``, ``joint.epoch_read`` and ``joint.feed_wait``
+  (``train/joint_runner.py``);
 - the feed worker: ``feed.assemble`` (the dataset's next batch),
   ``feed.pack`` and ``feed.copy`` (pinned, to the device).
 
