@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
 2. build: the nvcc build of both kernels and its seconds, registers and
    spills from ``ptxas -v``, and the tensor-core instructions (``HMMA`` /
    ``HGMMA``) in each kernel's SASS (``cuobjdump -sass``): the fused MLP
-   must have some;
+   must have some, and ``ptxas`` must report no spill and no serialised
+   ``wgmma`` in ``fused_mlp.cu``;
 3. fused_mlp: the kernel against its plain version (``mlp_reference``) on
    the card at the render's shapes: the VF net on 102,400 and 133,120
    points (39 -> 259, skip at layer 4, tanh) and the colour net on 133,120
@@ -445,6 +446,27 @@ def tensor_core_instructions(lib_path) -> dict:
                     counts[name][op] += 1
                     break
     return counts
+
+
+def fused_mlp_ptxas(build_log: str) -> list:
+    """The lines ``ptxas`` printed for ``fused_mlp.cu`` in the build log
+    (one ``== <source>`` section per source)."""
+    sections = re.split(r"^== ", build_log, flags=re.M)
+    return [line.strip() for sec in sections
+            if sec.startswith("fused_mlp.cu") for line in sec.splitlines()[1:]
+            if line.strip()]
+
+
+def check_fused_mlp_build(lines: list) -> None:
+    """Both instantiations of the fused MLP must keep every value in
+    registers and every wgmma in flight: no spill, no "wgmma ... serialized"
+    performance warning."""
+    check(bool(lines), "the build log has no ptxas lines for fused_mlp.cu")
+    spills = [ln for ln in lines
+              if re.search(r"\b[1-9]\d* bytes spill (stores|loads)", ln)]
+    check(not spills, f"fused_mlp.cu spills registers: {spills}")
+    serial = [ln for ln in lines if "serialized" in ln]
+    check(not serial, f"ptxas serialises fused_mlp.cu's wgmma: {serial}")
 
 
 def cuda_events(fn, calls: int = 1):
@@ -4150,8 +4172,12 @@ def main() -> int:
     mlp_tc = sum(c["HMMA"] + c["HGMMA"] for name, c in tensor_core.items()
                  if "fused_mlp" in name)
     check(mlp_tc > 0, "the fused MLP kernel's SASS has no HMMA / HGMMA")
+    mlp_ptxas = fused_mlp_ptxas(lib.build_log)
+    check_fused_mlp_build(mlp_ptxas)
     emit({"phase": "build", "seconds": seconds,
           "library": str(lib.path.relative_to(ROOT)), "ptxas": regs,
+          "fused_mlp_ptxas": [ln for ln in mlp_ptxas
+                              if "Potential" in ln or "warning" in ln],
           "tensor_core_sass": tensor_core})
 
     model = build_model(dev)

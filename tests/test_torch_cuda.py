@@ -389,16 +389,18 @@ def _plain_hidden(weights, x, skip_at):
 
 
 @pytest.mark.parametrize("schedule", ["all128", "all64", "mixed"])
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 20480])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 100, 127, 129, 20480, 204800])
 @pytest.mark.parametrize("net", ["vf", "colour"])
 def test_fused_mlp_tile_schedules(cuda, net, n, schedule):
     """Every block a 128-point one, every block a 64-point split one (the
-    outputs split between the warpgroups), and the wrapper's mix of both,
-    at point counts around both tiles and at the training step's 20,480
-    shell points (132 blocks of 128 and 56 of 64): the no-save launch against the
-    plain version, the save-mode output equal to it bit for bit, and the
-    saved activations (one bulk copy per block and layer into the
-    layer-major layout) equal to the plain forward's."""
+    outputs split between the consumer warpgroups), and the wrapper's mix of
+    both, at point counts around both tiles (65, 100 and 127 end a 128-point
+    block inside its second consumer's rows), at the training step's 20,480
+    shell points (132 blocks of 128 and 56 of 64) and at the render's 204,800
+    fine points: the no-save launch against the plain version, the
+    save-mode output equal to it bit for bit, and the saved activations (one
+    bulk copy per consumer and layer into the layer-major layout) equal to
+    the plain forward's."""
     dims, skip_at, act = (VF_DIMS, 4, "tanh") if net == "vf" else \
         (COLOUR_DIMS, None, "sigmoid")
     weights = [(w.to(cuda), b.to(cuda))
